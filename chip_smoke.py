@@ -9,12 +9,14 @@ Phases (any failure exits non-zero; no phase catches and continues):
    ``tissue_image_processing_tpu_torch/csrc`` (one ``nvcc`` per source, in
    parallel) and print the build seconds;
 2. hold each kernel against its plain PyTorch version on the card, on the
-   main path's shapes (a pre-blurred 1024^2 frame; two frames row-stacked to
-   2112 x 1024): blur to rtol 2e-6 / atol 1e-4, the diffusions, the settle
+   main path's shapes (the blur on a batch of two thresholded 1024^2 frames,
+   as ``watershed_segmentation_batch`` hands it over; the floods on the two
+   frames row-stacked to 2112 x 1024): blur to rtol 2e-6 / atol 1e-4, the diffusions, the settle
    mask and the settle (labels AND arrival stamps) bit for bit; time each;
 3. drive ``movie_pipeline`` on a synthetic pre-projected movie (T=8, C=2,
    Z=1, 1024^2) with launch counters zeroed just before and read just after,
-   check every kernel launched, that ``movie_pipeline_chunked`` (3-frame
+   read the pipeline's own stage timings from that run, check every kernel
+   launched, that ``movie_pipeline_chunked`` (3-frame
    chunks) gives identical ids, labels and areas, that the card's pipeline
    agrees with the CPU path of the port on a small movie, and print frames/s;
 4. print the kernel table as one JSON object, then the card's line, and as
@@ -100,8 +102,9 @@ def check_kernels(frames):
     thr = 0.2 * threshold_local_max(frames, 101)
     seg = torch.where(frames < thr, 0.0, frames)
 
-    # blur3d: one (1, 1024, 1024) frame, sigma 3 (25 taps per axis)
-    x = seg[:1].contiguous()
+    # blur3d: the (2, 1024, 1024) batch, sigma 3 (25 taps per axis), as
+    # _preprocess passes it (one launch per batch of two frames)
+    x = seg.contiguous()
     got = blur_cuda.blur3d(x, (1.0,), taps, taps)
     want = blur_cuda.blur3d_plain(x, (1.0,), taps, taps)
     torch.testing.assert_close(got, want, rtol=2e-6, atol=1e-4)
@@ -111,12 +114,12 @@ def check_kernels(frames):
     r = len(taps) // 2
 
     def library():
-        xp = torch.nn.functional.pad(x[None], (r, r, r, r), mode="replicate")
-        return torch.nn.functional.conv2d(xp, k2d)
+        xp = torch.nn.functional.pad(x[:, None], (r, r, r, r), mode="replicate")
+        return torch.nn.functional.conv2d(xp, k2d)[:, 0]
 
     prev_tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
-    torch.testing.assert_close(library()[0], want, rtol=1e-5, atol=1e-2)
+    torch.testing.assert_close(library(), want, rtol=1e-5, atol=1e-2)
     lib_ms = cuda_ms(library, 20)
     torch.backends.cudnn.allow_tf32 = prev_tf32
     rows["blur3d"] = dict(
@@ -124,7 +127,7 @@ def check_kernels(frames):
         ms=cuda_ms(lambda: blur_cuda.blur3d(x, (1.0,), taps, taps), 50),
         plain_ms=cuda_ms(lambda: blur_cuda.blur3d_plain(x, (1.0,), taps, taps), 5),
         bound=bound(8 * nvox, 2 * (1 + 2 * len(taps)) * nvox), library_ms=lib_ms)
-    print(f"blur3d (1,1024,1024) 25x25 taps: max_abs_err {rows['blur3d']['err']:.3g}"
+    print(f"blur3d {tuple(x.shape)} 25x25 taps: max_abs_err {rows['blur3d']['err']:.3g}"
           f" kernel {rows['blur3d']['ms']:.4f} ms, plain "
           f"{rows['blur3d']['plain_ms']:.4f} ms, conv2d {lib_ms:.4f} ms")
 
@@ -186,48 +189,6 @@ def check_kernels(frames):
     return rows
 
 
-def stage_breakdown(movie, kw, dev) -> dict:
-    """Host-clock seconds of each stage of ``movie_pipeline`` on ``movie``,
-    each stage ending in a synchronize (the same calls the pipeline makes)."""
-    import torch
-
-    from tissue_image_processing_tpu_torch.core import pipeline as pl
-    from tissue_image_processing_tpu_torch.core.cell_table import (
-        frame_cellinfo_checked)
-    from tissue_image_processing_tpu_torch.core.tracking import (
-        adaptive_effective_ranges, compute_drift_chain, track_movie)
-    from tissue_image_processing_tpu_torch.ops.watershed import (
-        watershed_segmentation_batch)
-
-    times = {}
-
-    def stage(name, fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        times[name] = time.perf_counter() - t0
-        return out
-
-    refs = stage("upload", lambda: pl._reference_frames(movie, 0, dev))
-    B = kw["batch"]
-    labels = stage("segment", lambda: torch.cat([watershed_segmentation_batch(
-        refs[i:i + B], 0.2, kw["std"], kw["block_size"])
-        for i in range(0, refs.shape[0], B)]))
-    tabs = stage("tables", lambda: pl.stack_tables([frame_cellinfo_checked(
-        lab, capacity=kw["capacity"])[0] for lab in labels]))
-    drifts = stage("drift", lambda: compute_drift_chain(refs))
-    host = tabs.map(lambda x: x.cpu())
-    ranges = stage("adaptive_radii", lambda: adaptive_effective_ranges(
-        host.cy.numpy(), host.cx.numpy(), host.area.numpy(),
-        host.valid_mask().numpy(), drifts=drifts.cpu().numpy(), per_cell=True))
-    stage("track", lambda: track_movie(
-        tabs.cy, tabs.cx, tabs.area, tabs.valid_mask(), drifts=drifts,
-        capacity=2 * kw["capacity"],
-        search_ranges=torch.as_tensor(ranges, dtype=torch.float32, device=dev)))
-    return times
-
-
 def check_pipeline(card: str):
     """Phase 3: the main path, its launch counts, chunked == unchunked, and
     agreement with the CPU path on a small movie."""
@@ -245,8 +206,9 @@ def check_pipeline(card: str):
     movie_pipeline(movie[:2], **kw)  # warm: library loads, allocator, cuFFT plans
     torch.cuda.synchronize()
     tipt.reset_launches()
+    stages = {}
     t0 = time.perf_counter()
-    out = movie_pipeline(movie, **kw)
+    out = movie_pipeline(movie, timings=stages, **kw)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = dict(tipt.LAUNCHES)
@@ -281,7 +243,6 @@ def check_pipeline(card: str):
           f"card vs CPU label agreement {agree:.6f} (128^2 x 4)")
     print(f"movie_pipeline 8 x 1024^2 Z=1: {8 / secs:.3f} frames/s "
           f"({secs:.3f} s) on {card}; launches {launches}")
-    stages = stage_breakdown(movie, kw, torch.device("cuda"))
     print("stage seconds (8 x 1024^2): " + ", ".join(
         f"{k} {v:.4f}" for k, v in stages.items()) + f" on {card}")
     return launches

@@ -149,6 +149,18 @@ def test_settle_mask_plain_matches_jax():
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("call", [
+    lambda img, small: flood_cuda.bf_flood(img, small),
+    lambda img, small: flood_cuda.cc_diffusion(img > 0.5, small.to(torch.int32)),
+    lambda img, small: flood_cuda.settle(img, small),
+], ids=["bf_flood", "cc_diffusion", "settle"])
+def test_flood_wrappers_reject_mismatched_shapes(call):
+    img = torch.from_numpy(_blurred(64, 64, n_seeds=5, seed=2))
+    small = torch.ones(32, 64, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        call(img, small)
+
+
 @pytest.mark.cuda
 def test_cuda_kernels_raise_on_wrong_dtype(cuda_device):
     with pytest.raises(ValueError):

@@ -110,6 +110,17 @@ def test_chunked_equals_unchunked(movie, port_whole, chunk):
     np.testing.assert_array_equal(got["drifts"], port_whole["drifts"])
 
 
+def test_stage_timings_leave_results_unchanged(movie, port_whole):
+    timings = {}
+    got = t_pipe(movie, device="cpu", timings=timings, **KW)
+    assert sorted(timings) == sorted(["upload", "segment", "tables", "drift",
+                                      "adaptive_radii", "track"])
+    assert all(v >= 0.0 for v in timings.values())
+    np.testing.assert_array_equal(got["ids"], port_whole["ids"])
+    np.testing.assert_array_equal(got["labels"].numpy(),
+                                  port_whole["labels"].numpy())
+
+
 def test_import_pulls_in_no_jax():
     code = (
         "import pkgutil, sys, importlib\n"

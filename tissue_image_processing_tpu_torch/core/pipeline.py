@@ -14,7 +14,9 @@ slices of the port and raise ``NotImplementedError``.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import contextlib
+import time
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -42,6 +44,22 @@ def _check_branch(shape, unet) -> None:
             "slice; pass a pre-projected (Z == 1) movie")
 
 
+@contextlib.contextmanager
+def _span(timings: Optional[Dict[str, float]], name: str, dev: torch.device):
+    """Add the host-clock seconds of the block to ``timings[name]``, the
+    device synchronized on entry and exit; a no-op when ``timings`` is None."""
+    if timings is None:
+        yield
+        return
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    yield
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    timings[name] = timings.get(name, 0.0) + time.perf_counter() - t0
+
+
 def _reference_frames(movie, reference_channel: int,
                       device: torch.device) -> torch.Tensor:
     """(T, X, Y) float32 reference frames in the reference's x-major space."""
@@ -56,26 +74,32 @@ def _reference_frames(movie, reference_channel: int,
 
 def _segment_program(refs_t: torch.Tensor, prev_ref: Optional[torch.Tensor],
                      threshold: float, std: float, block_size: int,
-                     capacity: int, batch: int):
+                     capacity: int, batch: int,
+                     timings: Optional[Dict[str, float]] = None):
     """Labels, tables, drifts and neighbour-overflow flags of a run of
     frames; ``prev_ref`` (the previous chunk's last reference frame) makes
     drift[0] the chunk-boundary shift."""
-    T = refs_t.shape[0]
+    T, dev = refs_t.shape[0], refs_t.device
     B = max(1, min(batch, T))
-    labels = torch.cat([watershed_segmentation_batch(
-        refs_t[i:i + B], threshold, std, block_size) for i in range(0, T, B)])
+    with _span(timings, "segment", dev):
+        labels = torch.cat([watershed_segmentation_batch(
+            refs_t[i:i + B], threshold, std, block_size)
+            for i in range(0, T, B)])
     # compacted adjacency votes (exact for <= 192 vote runs per label row);
     # the per-frame overflow flags tell the caller which frames to recompute
     # with frame_cellinfo(..., neighbor_compact_k=None)
-    per_frame = [frame_cellinfo_checked(lab, capacity=capacity,
-                                        neighbor_compact_k=192)
-                 for lab in labels]
-    tabs = stack_tables([tab for tab, _ in per_frame])
-    overflow = torch.stack([over for _, over in per_frame])
-    if prev_ref is None:
-        drifts = compute_drift_chain(refs_t)
-    else:
-        drifts = compute_drift_chain(torch.cat([prev_ref[None], refs_t]))[1:]
+    with _span(timings, "tables", dev):
+        per_frame = [frame_cellinfo_checked(lab, capacity=capacity,
+                                            neighbor_compact_k=192)
+                     for lab in labels]
+        tabs = stack_tables([tab for tab, _ in per_frame])
+        overflow = torch.stack([over for _, over in per_frame])
+    with _span(timings, "drift", dev):
+        if prev_ref is None:
+            drifts = compute_drift_chain(refs_t)
+        else:
+            drifts = compute_drift_chain(
+                torch.cat([prev_ref[None], refs_t]))[1:]
     return labels, tabs, drifts, overflow
 
 
@@ -84,31 +108,39 @@ def movie_pipeline(movie, *, reference_channel: int = 0,
                    block_size: int = 101, capacity: int = 1024,
                    batch: int = 2, search_range: float = 100.0,
                    memory: int = 3, drifts: Optional[np.ndarray] = None,
-                   unet: Optional[dict] = None, device=None):
+                   unet: Optional[dict] = None, device=None,
+                   timings: Optional[Dict[str, float]] = None):
     """(T, C, 1, Y, X) movie (numpy array or tensor) -> dict with per-frame
     ``labels`` (T, X, Y — the reference's transposed convention, a tensor on
     ``device``), stacked ``tables`` (CellTable of (T, capacity) tensors),
     ``drifts`` (T, 2), tracked ``ids`` (T, capacity; 0 = no cell) and the
-    per-frame ``neighbor_overflow`` flags. ``device=None`` runs on CUDA."""
+    per-frame ``neighbor_overflow`` flags. ``device=None`` runs on CUDA.
+
+    A ``timings`` dict receives the seconds of each stage (upload, segment,
+    tables, drift, adaptive_radii, track), each ending in a device
+    synchronize."""
     _check_branch(movie.shape, unet)
     dev = resolve_device(device)
-    refs_t = _reference_frames(movie, reference_channel, dev)
+    with _span(timings, "upload", dev):
+        refs_t = _reference_frames(movie, reference_channel, dev)
     labels, tabs, dr, overflow = _segment_program(
-        refs_t, None, threshold, std, block_size, capacity, batch)
-    if drifts is None:
-        drifts = dr.cpu().numpy()
-    host = tabs.map(lambda x: x.cpu())
-    mask = host.valid_mask().numpy()
-    ranges = adaptive_effective_ranges(host.cy.numpy(), host.cx.numpy(),
-                                       host.area.numpy(), mask, drifts=drifts,
-                                       search_range=search_range, per_cell=True)
-    ids = track_movie(tabs.cy, tabs.cx, tabs.area, tabs.valid_mask(),
-                      drifts=torch.as_tensor(drifts, dtype=torch.float32,
-                                             device=dev),
-                      search_range=search_range, memory=memory,
-                      capacity=2 * capacity,
-                      search_ranges=torch.as_tensor(ranges, dtype=torch.float32,
-                                                    device=dev))
+        refs_t, None, threshold, std, block_size, capacity, batch, timings)
+    with _span(timings, "adaptive_radii", dev):
+        if drifts is None:
+            drifts = dr.cpu().numpy()
+        host = tabs.map(lambda x: x.cpu())
+        mask = host.valid_mask().numpy()
+        ranges = adaptive_effective_ranges(
+            host.cy.numpy(), host.cx.numpy(), host.area.numpy(), mask,
+            drifts=drifts, search_range=search_range, per_cell=True)
+    with _span(timings, "track", dev):
+        ids = track_movie(tabs.cy, tabs.cx, tabs.area, tabs.valid_mask(),
+                          drifts=torch.as_tensor(drifts, dtype=torch.float32,
+                                                 device=dev),
+                          search_range=search_range, memory=memory,
+                          capacity=2 * capacity,
+                          search_ranges=torch.as_tensor(
+                              ranges, dtype=torch.float32, device=dev))
     return {"labels": labels, "tables": tabs, "drifts": drifts,
             "ids": ids.cpu().numpy(),
             "neighbor_overflow": overflow.cpu().numpy()}

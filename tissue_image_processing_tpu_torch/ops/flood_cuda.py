@@ -73,6 +73,14 @@ def _fixpoint(step, st: torch.Tensor) -> Tuple[torch.Tensor, int]:
         sweeps += 1
 
 
+def _require_like(ref: torch.Tensor, other: torch.Tensor, what: str) -> None:
+    """Raise unless ``other`` has ``ref``'s shape and device: the kernels size
+    their grids from ``ref`` and index ``other`` with the same extents."""
+    if other.shape != ref.shape or other.device != ref.device:
+        raise ValueError(f"{what}: expected {tuple(ref.shape)} on {ref.device}, "
+                         f"got {tuple(other.shape)} on {other.device}")
+
+
 def _run_batches(launch, name: str) -> None:
     """Launch SWEEP_BATCH-sweep batches until a batch's last sweep changed
     nothing. ``launch()`` returns the batch's device flag."""
@@ -98,6 +106,7 @@ def bf_flood_plain(img: torch.Tensor, seeds: torch.Tensor,
 def bf_flood(img: torch.Tensor, seeds: torch.Tensor) -> torch.Tensor:
     """Flood levels lam = minimax path elevation from any seed (seeds > 0);
     +inf where no seed is reachable."""
+    _require_like(img, seeds, "bf_flood seeds")
     if img.device.type == "cpu":
         return bf_flood_plain(img, seeds)
     img = img.to(torch.float32).contiguous()
@@ -152,6 +161,8 @@ def cc_diffusion(mask: torch.Tensor,
     gets the MIN of its pixels' ``init`` values (default: the flat pixel
     index, i.e. the component's first raster pixel); -1 outside the mask.
     ``init`` may hold negative values to poison whole components."""
+    if init is not None:
+        _require_like(mask, init, "cc_diffusion init")
     if mask.device.type == "cpu":
         return cc_diffusion_plain(mask, init)
     if mask.dim() != 2 or mask.dtype != torch.bool:
@@ -268,6 +279,7 @@ def settle(lam: torch.Tensor, seeds: torch.Tensor
     Returns (lbl, t): lbl > 0 the settled label, -1 a line pixel (donors
     disagree), -2 a void (nothing can ever donate), 0 never settled; t the
     Jacobi sweep at which the pixel settled (0 for seeds, ``BIG_T`` never)."""
+    _require_like(lam, seeds, "settle seeds")
     if lam.device.type == "cpu":
         return settle_plain(lam, seeds)
     mask = settle_mask(lam)
