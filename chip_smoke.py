@@ -9,18 +9,32 @@ Phases (any failure exits non-zero; no phase catches and continues):
    ``tissue_image_processing_tpu_torch/csrc`` (one ``nvcc`` per source, in
    parallel) and print the build seconds;
 2. hold each kernel against its plain PyTorch version on the card, on the
-   main path's shapes (the blur on a batch of two thresholded 1024^2 frames,
-   as ``watershed_segmentation_batch`` hands it over; the floods on the two
-   frames row-stacked to 2112 x 1024): blur to rtol 2e-6 / atol 1e-4, the diffusions, the settle
-   mask and the settle (labels AND arrival stamps) bit for bit; time each;
-3. drive ``movie_pipeline`` on a synthetic pre-projected movie (T=8, C=2,
-   Z=1, 1024^2) with launch counters zeroed just before and read just after,
-   read the pipeline's own stage timings from that run, check every kernel
-   launched, that ``movie_pipeline_chunked`` (3-frame
-   chunks) gives identical ids, labels and areas, that the card's pipeline
-   agrees with the CPU path of the port on a small movie, and print frames/s;
-4. print the kernel table as one JSON object, then the card's line, and as
-   the last line ``{"ok": true, "device": {...}}``.
+   main path's shapes, and time the kernel, the plain version and (where one
+   exists) one PyTorch library call computing the same function:
+   the blur on a batch of two thresholded 1024^2 frames, as
+   ``watershed_segmentation_batch`` hands it over; the floods on the two
+   frames row-stacked to 2112 x 1024; the projection's score and project
+   passes on one (2, 30, 1024, 1024) uint16 frame and its z-map. Blur to
+   rtol 2e-6 / atol 1e-4; the diffusions, the settle mask, the settle
+   (labels AND arrival stamps) and both projection passes bit for bit;
+   then the device time of each step of ``fused_projection`` on that frame;
+3. hold the fused projection against the unfused one on the card (the JAX
+   tolerance class: >= 99% of pixels within one plane, median relative
+   error < 0.02 where the z-maps agree);
+4. drive ``movie_pipeline`` on a synthetic pre-projected movie (T=8, C=2,
+   Z=1, 1024^2) and then on the raw headline movie (T=8, C=2, Z=30,
+   1024^2 uint16), each with the launch counters zeroed just before and
+   read just after: every kernel of the path launched (the two projection
+   kernels once a frame), cells per frame and id persistence as expected,
+   ``movie_pipeline_chunked`` (3-frame chunks) identical to the unchunked
+   run; print frames/s and the pipeline's own stage seconds;
+5. compare the card with the CPU path of the port on small movies: the
+   pre-projected watershed path, the fused projection (2, 8, 128, 128)
+   against its plain route on CPU tensors, and a Z > 1 pipeline at a shape
+   the fused gate refuses (96^2, Z=6), so both take the unfused route;
+6. print the kernel table as one JSON object (launches from the Z=30
+   run), then the card's line, and as the last line
+   ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or the JAX package.
 """
@@ -36,7 +50,11 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
-KERNEL_SOURCE = {"blur3d": "tissue_image_processing_tpu_torch/csrc/blur3d.cu"}
+KERNEL_SOURCE = {
+    "blur3d": "tissue_image_processing_tpu_torch/csrc/blur3d.cu",
+    "proj_score": "tissue_image_processing_tpu_torch/csrc/projection.cu",
+    "proj_project": "tissue_image_processing_tpu_torch/csrc/projection.cu",
+}
 FLOOD_SOURCE = "tissue_image_processing_tpu_torch/csrc/flood.cu"
 REPLACES = {
     "blur3d": "tissue_image_processing_tpu/ops/blur_pallas.py:130",
@@ -44,7 +62,12 @@ REPLACES = {
     "diffusion_cc": "tissue_image_processing_tpu/ops/flood_pallas.py:447",
     "settle_mask": "tissue_image_processing_tpu/ops/flood_pallas.py:713",
     "settle": "tissue_image_processing_tpu/ops/flood_pallas.py:1416",
+    "proj_score": "tissue_image_processing_tpu/projection/fused.py:147",
+    "proj_project": "tissue_image_processing_tpu/projection/fused.py:274",
 }
+KERNELS = ("blur3d", "diffusion_bf", "diffusion_cc", "settle_mask", "settle",
+           "proj_score", "proj_project")
+PROJECTION_KERNELS = ("proj_score", "proj_project")
 
 
 def card_line() -> str:
@@ -189,9 +212,151 @@ def check_kernels(frames):
     return rows
 
 
-def check_pipeline(card: str):
-    """Phase 3: the main path, its launch counts, chunked == unchunked, and
-    agreement with the CPU path on a small movie."""
+def check_projection_kernels(stack):
+    """Phase 2 for the projection: the score and project passes against their
+    plain versions on one (2, 30, 1024, 1024) uint16 frame and its z-map,
+    bit for bit; times and bounds."""
+    import torch
+    import torch.nn.functional as F
+
+    from tissue_image_processing_tpu_torch.ops.percentile import (
+        masked_percentile)
+    from tissue_image_processing_tpu_torch.projection import fused
+
+    rows = {}
+    C, Z, Y, X = stack.shape
+    ref = stack[0]
+    sub = ref[:, ::16, :].to(torch.float32)
+    p95 = masked_percentile(sub, sub > 0, 95.0)
+    got = fused.score_pass(ref, p95)
+    want = fused.score_pass_plain(ref, p95)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+    # one library call computing the same function: conv3d with the folded
+    # (5, 12, 12) kernel and stride (1, 4, 4) over the pre-padded clipped
+    # volume (cuDNN TF32 off)
+    kz, ky, kx = (np.asarray(k, np.float64) for k in fused._SCORE_TAPS)
+    fy, fx = (0.25 * np.convolve(k, np.ones(4)) for k in (ky, kx))
+    kern = torch.tensor(kz[:, None, None] * fy[None, :, None] * fx[None, None, :],
+                        dtype=torch.float32, device=ref.device)[None, None]
+    clipped = torch.minimum(ref.to(torch.float32), p95)
+    xp = F.pad(clipped[None, None], (4, 4, 4, 4, 2, 2), mode="replicate")
+
+    def library():
+        return F.conv3d(xp, kern, stride=(1, 4, 4))[0, 0]
+
+    prev_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    lib_err = max_abs_err(library(), want)
+    torch.testing.assert_close(library(), want, rtol=1e-4, atol=1.0)
+    lib_ms = cuda_ms(library, 10)
+    torch.backends.cudnn.allow_tf32 = prev_tf32
+    nvox = Z * Y * X
+    # ~36 flops per input voxel: offset and clip, 5 z taps, 9 y taps, the row
+    # mean, and 9 x taps with the column mean on a quarter of the rows
+    rows["proj_score"] = dict(
+        err=max_abs_err(got, want),
+        ms=cuda_ms(lambda: fused.score_pass(ref, p95), 50),
+        plain_ms=cuda_ms(lambda: fused.score_pass_plain(ref, p95), 5),
+        bound=bound(2 * nvox + 4 * nvox // 16, 36 * nvox), library_ms=lib_ms)
+    print(f"proj_score {tuple(ref.shape)}: bit-exact, kernel "
+          f"{rows['proj_score']['ms']:.4f} ms, plain "
+          f"{rows['proj_score']['plain_ms']:.4f} ms, conv3d {lib_ms:.4f} ms "
+          f"(max_abs_err vs plain {lib_err:.3g}), bound "
+          f"{rows['proj_score']['bound'][0]:.4f} ms "
+          f"({rows['proj_score']['bound'][1]})")
+
+    _, rel_z = fused.fused_projection(stack)
+    got = fused.project_pass(stack, rel_z)
+    want = fused.project_pass_plain(stack, rel_z)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    # the planes this z-map needs: for each pixel those within 4 of any
+    # z-map value in its 17 x 17 window (the mask is 0 elsewhere)
+    zp = F.pad(rel_z.to(torch.float32)[None, None], (8, 8, 8, 8),
+               mode="replicate")
+    hi = F.max_pool2d(zp, 17, stride=1)[0, 0]
+    lo = -F.max_pool2d(-zp, 17, stride=1)[0, 0]
+    planes = int(((hi + 4).clamp(max=Z - 1) - (lo - 4).clamp(min=0) + 1).sum())
+    all_planes = bound(2 * C * Z * Y * X + 4 * Y * X + 4 * C * Y * X, 0)[0]
+    # per admitted pixel-plane: 17 y taps, 17 x taps, a multiply and a max
+    # per channel
+    rows["proj_project"] = dict(
+        err=max_abs_err(got, want),
+        ms=cuda_ms(lambda: fused.project_pass(stack, rel_z), 20),
+        plain_ms=cuda_ms(lambda: fused.project_pass_plain(stack, rel_z), 3),
+        bound=bound(2 * C * planes + 4 * Y * X + 4 * C * Y * X,
+                    (68 + 2 * C) * planes), library_ms=None)
+    print(f"proj_project {tuple(stack.shape)}: bit-exact, kernel "
+          f"{rows['proj_project']['ms']:.4f} ms, plain "
+          f"{rows['proj_project']['plain_ms']:.4f} ms, bound "
+          f"{rows['proj_project']['bound'][0]:.4f} ms "
+          f"({rows['proj_project']['bound'][1]}; {planes / (Y * X):.2f} planes "
+          f"a pixel of {Z}; reading every plane {all_planes:.4f} ms); z-map "
+          f"range {int(rel_z.min())}..{int(rel_z.max())}")
+    return rows
+
+
+def projection_breakdown(stack, card: str):
+    """Device time of each step of ``fused_projection`` on one frame (CUDA
+    events around repeated calls, so launch gaps count)."""
+    import torch
+
+    from tissue_image_processing_tpu_torch.ops.filters import (
+        gaussian_blur, resize_bilinear)
+    from tissue_image_processing_tpu_torch.ops.percentile import (
+        masked_percentile)
+    from tissue_image_processing_tpu_torch.projection import fused
+
+    Z, Y, X = stack.shape[1:]
+    ref = stack[0]
+    sub = ref[:, ::16, :].to(torch.float32)
+    p95 = masked_percentile(sub, sub > 0, 95.0)
+    small = fused.score_pass(ref, p95)
+    score = gaussian_blur(small, (0.5, 7.5, 7.5), fast=True)
+    rel_z = fused.fused_projection(stack)[1]
+
+    def zmap():
+        rel = torch.argmax(score, dim=0).to(torch.float32)
+        return torch.round(resize_bilinear(rel, (Y, X))).to(torch.int32).clamp(0, Z - 1)
+
+    steps = {
+        "p95": lambda: masked_percentile(sub, sub > 0, 95.0),
+        "score_pass": lambda: fused.score_pass(ref, p95),
+        "small_blur": lambda: gaussian_blur(small, (0.5, 7.5, 7.5), fast=True),
+        "argmax_resize": zmap,
+        "project_pass": lambda: fused.project_pass(stack, rel_z),
+        "fused_projection": lambda: fused.fused_projection(stack),
+    }
+    ms = {k: cuda_ms(fn, 10) for k, fn in steps.items()}
+    print(f"fused_projection steps, ms a frame {tuple(stack.shape)}: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in ms.items()) + f" on {card}")
+
+
+def check_fused_vs_unfused(stack):
+    """Phase 3: the fused projection against the unfused one on the card,
+    to the JAX package's tolerance class (tests/test_projection_fused.py)."""
+    from tissue_image_processing_tpu_torch.projection.fused import (
+        fused_projection)
+    from tissue_image_processing_tpu_torch.projection.surface import (
+        time_point_surface_projection)
+
+    pf, zf = fused_projection(stack, airyscan=False)
+    pr, zr = time_point_surface_projection(stack, airyscan=False)
+    dz = (zf - zr).abs()
+    near = float((dz <= 1).float().mean())
+    same = dz == 0
+    rel = ((pf[:, same] - pr[:, same]).abs() / (pr[:, same].abs() + 1.0))
+    med = float(rel.median())
+    assert near > 0.99, f"fused z-map within one plane on {near:.4f} of pixels"
+    assert med < 0.02, f"fused projection median relative error {med:.4f}"
+    print(f"fused vs unfused {tuple(stack.shape)}: |dz| <= 1 on {near:.6f}, "
+          f"dz == 0 on {float(same.float().mean()):.6f}, median relative "
+          f"error {med:.3g}")
+
+
+def check_pipeline(card: str, Z: int):
+    """Phase 4: one main path (Z == 1 pre-projected, or the raw Z-plane
+    movie), its launch counts, chunked == unchunked."""
     import torch
 
     import tissue_image_processing_tpu_torch as tipt
@@ -200,9 +365,10 @@ def check_pipeline(card: str):
     from tissue_image_processing_tpu_torch.utils.synthetic import make_movie
 
     kw = dict(batch=2, capacity=1024, block_size=101, std=3.0)
+    T = 8
     t0 = time.time()
-    movie = make_movie(T=8, Z=1, H=1024, W=1024, seed=0).astype(np.uint16)
-    print(f"movie (8, 2, 1, 1024, 1024) uint16 made in {time.time() - t0:.1f} s")
+    movie = make_movie(T=T, Z=Z, H=1024, W=1024, seed=0).astype(np.uint16)
+    print(f"movie {movie.shape} uint16 made in {time.time() - t0:.1f} s")
     movie_pipeline(movie[:2], **kw)  # warm: library loads, allocator, cuFFT plans
     torch.cuda.synchronize()
     tipt.reset_launches()
@@ -212,16 +378,21 @@ def check_pipeline(card: str):
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = dict(tipt.LAUNCHES)
-    missing = [k for k, v in launches.items() if v == 0]
+    expected = [k for k in KERNELS if Z > 1 or k not in PROJECTION_KERNELS]
+    missing = [k for k in expected if launches[k] == 0]
     assert not missing, f"kernels not launched on the main path: {missing}"
+    if Z > 1:
+        assert all(launches[k] == T for k in PROJECTION_KERNELS), launches
+    else:
+        assert all(launches[k] == 0 for k in PROJECTION_KERNELS), launches
 
     labels = out["labels"].cpu().numpy()
-    assert labels.shape == (8, 1024, 1024), labels.shape
+    assert labels.shape == (T, 1024, 1024), labels.shape
     n_cells = [int(np.unique(l).size - 1) for l in labels]
     assert min(n_cells) > 200, n_cells
     assert np.isfinite(out["drifts"]).all() and np.abs(out["drifts"]).max() < 5
     ids = out["ids"]
-    assert ids.shape == (8, 1024) and (ids > 0).sum(axis=1).min() > 200
+    assert ids.shape == (T, 1024) and (ids > 0).sum(axis=1).min() > 200
     # a cell seen in frame 0 should mostly keep its id to the last frame
     kept = np.intersect1d(ids[0][ids[0] > 0], ids[-1][ids[-1] > 0]).size
     assert kept > 0.5 * (ids[0] > 0).sum(), kept
@@ -231,21 +402,48 @@ def check_pipeline(card: str):
     assert np.array_equal(got["labels"], labels), "chunked labels differ"
     assert np.array_equal(got["tables"].area.numpy(),
                           out["tables"].area.cpu().numpy()), "chunked areas differ"
-
-    small = make_movie(T=4, Z=1, H=128, W=128, seed=1)
-    skw = dict(batch=2, capacity=128, block_size=31, std=3.0)
-    on_card = movie_pipeline(small, **skw)
-    on_cpu = movie_pipeline(small, device="cpu", **skw)
-    agree = float((on_card["labels"].cpu().numpy()
-                   == on_cpu["labels"].numpy()).mean())
-    assert agree >= 0.995, f"card vs CPU label agreement {agree}"
-    print(f"pipeline: cells/frame {n_cells}, chunked(3) == unchunked, "
-          f"card vs CPU label agreement {agree:.6f} (128^2 x 4)")
-    print(f"movie_pipeline 8 x 1024^2 Z=1: {8 / secs:.3f} frames/s "
+    print(f"pipeline Z={Z}: cells/frame {n_cells}, chunked(3) == unchunked")
+    print(f"movie_pipeline {T} x 1024^2 Z={Z}: {T / secs:.3f} frames/s "
           f"({secs:.3f} s) on {card}; launches {launches}")
-    print("stage seconds (8 x 1024^2): " + ", ".join(
+    print(f"stage seconds ({T} x 1024^2, Z={Z}): " + ", ".join(
         f"{k} {v:.4f}" for k, v in stages.items()) + f" on {card}")
     return launches
+
+
+def check_card_vs_cpu():
+    """Phase 5: the card against the port's CPU path on small inputs."""
+    import torch
+
+    from tissue_image_processing_tpu_torch.core.pipeline import movie_pipeline
+    from tissue_image_processing_tpu_torch.projection.fused import (
+        fused_projection)
+    from tissue_image_processing_tpu_torch.utils.synthetic import make_movie
+
+    skw = dict(batch=2, capacity=128, block_size=31, std=3.0)
+    agree = {}
+    for name, movie in (("Z=1 128^2", make_movie(T=4, Z=1, H=128, W=128, seed=1)),
+                        ("Z=6 96^2 unfused",
+                         make_movie(T=4, Z=6, H=96, W=96, seed=1).astype(np.uint16))):
+        on_card = movie_pipeline(movie, **skw)
+        on_cpu = movie_pipeline(movie, device="cpu", **skw)
+        agree[name] = float((on_card["labels"].cpu().numpy()
+                             == on_cpu["labels"].numpy()).mean())
+        assert agree[name] >= 0.995, f"card vs CPU label agreement {agree}"
+
+    # the fused route on the card against its plain route on CPU tensors
+    stack = torch.from_numpy(make_movie(T=1, Z=8, H=128, W=128, seed=3)[0]
+                             .astype(np.uint16))
+    gp, gz = fused_projection(stack.cuda())
+    wp, wz = fused_projection(stack)
+    gp, gz = gp.cpu(), gz.cpu()
+    dz = (gz - wz).abs()
+    same = dz == 0
+    assert float(same.float().mean()) >= 0.999 and int(dz.max()) <= 1, \
+        "fused z-map on the card differs from the CPU route"
+    torch.testing.assert_close(gp[:, same], wp[:, same], rtol=2e-6, atol=1e-4)
+    print(f"card vs CPU: label agreement {agree}; fused (2, 8, 128, 128) z-map "
+          f"equal on {float(same.float().mean()):.6f}, projection max_abs_err "
+          f"{max_abs_err(gp[:, same], wp[:, same]):.3g} where equal")
 
 
 def main() -> int:
@@ -272,10 +470,18 @@ def main() -> int:
     frames = _reference_frames(make_movie(T=2, Z=1, H=1024, W=1024, seed=2),
                                0, torch.device("cuda"))
     rows = check_kernels(frames)
-    launches = check_pipeline(card)
+    stack = torch.from_numpy(make_movie(T=1, Z=30, H=1024, W=1024, seed=2)[0]
+                             .astype(np.uint16)).cuda()
+    rows.update(check_projection_kernels(stack))
+    projection_breakdown(stack, card)
+    check_fused_vs_unfused(stack)
+    del stack
+    check_pipeline(card, Z=1)
+    launches = check_pipeline(card, Z=30)
+    check_card_vs_cpu()
 
     table = []
-    for name in ("blur3d", "diffusion_bf", "diffusion_cc", "settle_mask", "settle"):
+    for name in KERNELS:
         r = rows[name]
         table.append({
             "name": name, "route": "cuda",

@@ -5,8 +5,11 @@ A pre-projected (Z == 1) drifting membrane movie goes through both
 its multiply-adds) and round-off can flip plateau ties, so labels must agree
 on >= 99.5% of pixels with per-cell Dice >= 0.99, and track ids are compared
 through the label matching. The port's chunked run must equal its unchunked
-run exactly. Also: the package imports no JAX, and asking for the card
-without one raises.
+run exactly. A raw z-stack movie (Z > 1, uint16, with and without the
+airyscan offset) goes through both packages too: each projects every frame
+(on the CPU both take the unfused route), and there the runs agree exactly.
+Also: the package imports no JAX, and asking for the card without one
+raises.
 """
 
 import subprocess
@@ -143,10 +146,69 @@ def test_cuda_without_card_raises(movie, monkeypatch):
 
 
 def test_projection_and_unet_branches_not_ported_yet(movie):
-    with pytest.raises(NotImplementedError):
-        t_pipe(np.repeat(movie[:2], 3, axis=2), device="cpu", **KW)
+    # the projection branch is ported (the Z > 1 tests below); U-Net is not
     with pytest.raises(NotImplementedError):
         t_pipe(movie[:2], unet={"params": None}, device="cpu", **KW)
+
+
+def _zmovie(airyscan: bool):
+    """(4, 2, 6, 128, 128) uint16 raw z-stack movie; with ``airyscan`` the
+    intensities carry the airyscan offset."""
+    mv = _movie(T=4, Z=6, seed=3)
+    return np.clip(mv + (10000.0 if airyscan else 0.0), 0, 65535).astype(np.uint16)
+
+
+@pytest.fixture(scope="module", params=[False, True], ids=["plain", "airyscan"])
+def zcase(request):
+    mv = _zmovie(request.param)
+    return mv, request.param, t_pipe(mv, device="cpu", airyscan=request.param,
+                                      **KW)
+
+
+def test_z_stack_pipeline_matches_jax(zcase):
+    """Both packages project every frame (the unfused route on the CPU) and
+    segment and track the projections; the runs agree exactly."""
+    from tissue_image_processing_tpu.projection.surface import (
+        project_timepoint_auto as j_proj)
+    from tissue_image_processing_tpu_torch.projection.surface import (
+        project_timepoint_auto as t_proj)
+
+    mv, airyscan, got = zcase
+    for t in range(mv.shape[0]):
+        wp, wz = j_proj(jnp.asarray(mv[t]), airyscan=airyscan)
+        gp, gz = t_proj(torch.from_numpy(mv[t]), airyscan=airyscan)
+        np.testing.assert_array_equal(gz.numpy(), np.asarray(wz))
+        np.testing.assert_allclose(gp[0].numpy(), np.asarray(wp)[0],
+                                   rtol=1e-4, atol=1e-3)
+    want = j_pipe(jnp.asarray(mv), airyscan=airyscan, **KW)
+    gl, wl = got["labels"].numpy(), np.asarray(want["labels"])
+    assert gl.shape == wl.shape == (4, 128, 128)
+    np.testing.assert_array_equal(gl, wl)
+    np.testing.assert_array_equal(got["ids"], want["ids"])
+    np.testing.assert_array_equal(got["tables"].area.numpy(),
+                                  np.asarray(want["tables"].area))
+    np.testing.assert_allclose(got["drifts"], np.asarray(want["drifts"]),
+                               atol=1e-4)
+
+
+def test_z_stack_chunked_equals_unchunked(zcase):
+    mv, airyscan, whole = zcase
+    got = t_pipe_chunked(mv, chunk_frames=3, device="cpu", airyscan=airyscan,
+                         **KW)
+    np.testing.assert_array_equal(got["ids"], whole["ids"])
+    np.testing.assert_array_equal(got["labels"], whole["labels"].numpy())
+    np.testing.assert_array_equal(got["tables"].area.numpy(),
+                                  whole["tables"].area.numpy())
+    np.testing.assert_array_equal(got["drifts"], whole["drifts"])
+
+
+def test_z_stack_timings_include_projection(zcase):
+    mv, airyscan, whole = zcase
+    timings = {}
+    got = t_pipe(mv, device="cpu", airyscan=airyscan, timings=timings, **KW)
+    assert sorted(timings) == sorted(["upload", "project", "segment", "tables",
+                                      "drift", "adaptive_radii", "track"])
+    np.testing.assert_array_equal(got["labels"].numpy(), whole["labels"].numpy())
 
 
 @pytest.mark.cuda
@@ -156,3 +218,14 @@ def test_pipeline_on_card_matches_cpu(movie, port_whole):
     got = t_pipe(movie, device="cuda", **KW)
     assert (got["labels"].cpu().numpy()
             == port_whole["labels"].numpy()).mean() >= 0.995
+
+
+@pytest.mark.cuda
+def test_z_stack_pipeline_on_card_matches_cpu():
+    # 96^2 is refused by the fused gate, so card and CPU take the same route
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    mv = _movie(T=4, Z=6, H=96, W=96, seed=4).astype(np.uint16)
+    got = t_pipe(mv, device="cuda", **KW)
+    want = t_pipe(mv, device="cpu", **KW)
+    assert (got["labels"].cpu().numpy() == want["labels"].numpy()).mean() >= 0.995

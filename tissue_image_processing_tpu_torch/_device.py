@@ -23,16 +23,17 @@ import torch
 
 __all__ = ["LAUNCHES", "KERNEL_SOURCES", "resolve_device", "build_kernels",
            "load_library", "reset_launches", "check_cuda", "ptr",
-           "stream_ptr", "require_cuda_tensor"]
+           "stream_ptr", "require_cuda_tensor", "host_to_device"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
-KERNEL_SOURCES = ("blur3d", "flood")
+KERNEL_SOURCES = ("blur3d", "flood", "projection")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES: Dict[str, int] = {"blur3d": 0, "diffusion_bf": 0,
-                            "diffusion_cc": 0, "settle_mask": 0, "settle": 0}
+                            "diffusion_cc": 0, "settle_mask": 0, "settle": 0,
+                            "proj_score": 0, "proj_project": 0}
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
@@ -46,6 +47,15 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
             "CUDA device requested but torch.cuda.is_available() is False; "
             "pass device='cpu' to run the plain PyTorch path")
     return dev
+
+
+def host_to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """Copy a small host tensor (taps, weights) to ``device``. On the card
+    the copy goes through pinned memory on the current stream, so it does
+    not wait for the work queued before it."""
+    if torch.device(device).type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 def reset_launches() -> None:

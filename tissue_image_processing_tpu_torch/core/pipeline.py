@@ -2,14 +2,17 @@
 tracking.
 
 Port of ``tissue_image_processing_tpu/core/pipeline.py`` (``movie_pipeline``
-and ``movie_pipeline_chunked``) on the watershed branch for pre-projected
-movies (Z == 1). Frames flood in row-stacked batches through the CUDA flood
-kernels, tables and the drift chain run as tensor code on the same device,
-the adaptive radii take one host pass over the tables, and the tracker links
-frame by frame on the device.
+and ``movie_pipeline_chunked``) on the watershed branch. A Z > 1 movie is
+uploaded one (C, Z, Y, X) frame at a time and surface-projected
+(``project_timepoint_auto``: the two fused projection kernels on the card);
+only the reference channel's (Y, X) projection is kept. A Z == 1 movie is
+pre-projected and skips this. Frames flood in row-stacked batches through the
+CUDA flood kernels, tables and the drift chain run as tensor code on the same
+device, the adaptive radii take one host pass over the tables, and the
+tracker links frame by frame on the device.
 
-Z > 1 movies (surface projection) and the U-Net branch belong to later
-slices of the port and raise ``NotImplementedError``.
+The U-Net branch belongs to a later slice of the port and raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -28,6 +31,8 @@ from tissue_image_processing_tpu_torch.core.tracking import (
     TrackingState, adaptive_effective_ranges, compute_drift_chain, track_movie)
 from tissue_image_processing_tpu_torch.ops.watershed import (
     watershed_segmentation_batch)
+from tissue_image_processing_tpu_torch.projection.surface import (
+    project_timepoint_auto)
 
 __all__ = ["movie_pipeline", "movie_pipeline_chunked"]
 
@@ -37,11 +42,7 @@ def _check_branch(shape, unet) -> None:
         raise ValueError(f"movie must be (T, C, Z, Y, X), got {tuple(shape)}")
     if unet is not None:
         raise NotImplementedError(
-            "the U-Net segmentation branch is ported in the next slice")
-    if shape[2] != 1:
-        raise NotImplementedError(
-            "Z > 1 movies need the surface projection, ported in the next "
-            "slice; pass a pre-projected (Z == 1) movie")
+            "the U-Net segmentation branch is ported in a later slice")
 
 
 @contextlib.contextmanager
@@ -60,16 +61,33 @@ def _span(timings: Optional[Dict[str, float]], name: str, dev: torch.device):
     timings[name] = timings.get(name, 0.0) + time.perf_counter() - t0
 
 
-def _reference_frames(movie, reference_channel: int,
-                      device: torch.device) -> torch.Tensor:
-    """(T, X, Y) float32 reference frames in the reference's x-major space."""
-    ref = movie[:, reference_channel, 0]
-    if isinstance(ref, torch.Tensor):
-        ref = ref.to(device=device, dtype=torch.float32)
-    else:
-        ref = torch.from_numpy(np.ascontiguousarray(ref, dtype=np.float32)
-                               ).to(device)
-    return ref.transpose(1, 2).contiguous()
+def _upload(x, device: torch.device, dtype=None) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=dtype)
+    return torch.from_numpy(np.ascontiguousarray(x)).to(device=device,
+                                                        dtype=dtype)
+
+
+def _reference_frames(movie, reference_channel: int, device: torch.device,
+                      airyscan: bool = False,
+                      timings: Optional[Dict[str, float]] = None
+                      ) -> torch.Tensor:
+    """(T, X, Y) float32 reference frames in the reference's x-major space.
+    A Z > 1 movie is uploaded one frame at a time and projected; only the
+    reference channel's projection is kept."""
+    if movie.shape[2] == 1:
+        with _span(timings, "upload", device):
+            ref = _upload(movie[:, reference_channel, 0], device, torch.float32)
+            return ref.transpose(1, 2).contiguous()
+    refs = []
+    for t in range(movie.shape[0]):
+        with _span(timings, "upload", device):
+            stack = _upload(movie[t], device)
+        with _span(timings, "project", device):
+            proj, _ = project_timepoint_auto(
+                stack, reference_channel=reference_channel, airyscan=airyscan)
+            refs.append(proj[reference_channel])
+    return torch.stack(refs).transpose(1, 2).contiguous()
 
 
 def _segment_program(refs_t: torch.Tensor, prev_ref: Optional[torch.Tensor],
@@ -106,23 +124,25 @@ def _segment_program(refs_t: torch.Tensor, prev_ref: Optional[torch.Tensor],
 def movie_pipeline(movie, *, reference_channel: int = 0,
                    threshold: float = 0.2, std: float = 3.0,
                    block_size: int = 101, capacity: int = 1024,
-                   batch: int = 2, search_range: float = 100.0,
+                   batch: int = 2, airyscan: bool = False,
+                   search_range: float = 100.0,
                    memory: int = 3, drifts: Optional[np.ndarray] = None,
                    unet: Optional[dict] = None, device=None,
                    timings: Optional[Dict[str, float]] = None):
-    """(T, C, 1, Y, X) movie (numpy array or tensor) -> dict with per-frame
-    ``labels`` (T, X, Y — the reference's transposed convention, a tensor on
-    ``device``), stacked ``tables`` (CellTable of (T, capacity) tensors),
-    ``drifts`` (T, 2), tracked ``ids`` (T, capacity; 0 = no cell) and the
-    per-frame ``neighbor_overflow`` flags. ``device=None`` runs on CUDA.
+    """(T, C, Z, Y, X) movie (numpy array or tensor, uint16 or float) ->
+    dict with per-frame ``labels`` (T, X, Y — the reference's transposed
+    convention, a tensor on ``device``), stacked ``tables`` (CellTable of
+    (T, capacity) tensors), ``drifts`` (T, 2), tracked ``ids`` (T, capacity;
+    0 = no cell) and the per-frame ``neighbor_overflow`` flags.
+    ``device=None`` runs on CUDA. Z > 1 movies are surface-projected first
+    (``airyscan`` subtracts the airyscan offset there); Z == 1 skips it.
 
-    A ``timings`` dict receives the seconds of each stage (upload, segment,
-    tables, drift, adaptive_radii, track), each ending in a device
-    synchronize."""
+    A ``timings`` dict receives the seconds of each stage (upload, project
+    when Z > 1, segment, tables, drift, adaptive_radii, track), each ending
+    in a device synchronize."""
     _check_branch(movie.shape, unet)
     dev = resolve_device(device)
-    with _span(timings, "upload", dev):
-        refs_t = _reference_frames(movie, reference_channel, dev)
+    refs_t = _reference_frames(movie, reference_channel, dev, airyscan, timings)
     labels, tabs, dr, overflow = _segment_program(
         refs_t, None, threshold, std, block_size, capacity, batch, timings)
     with _span(timings, "adaptive_radii", dev):
@@ -150,6 +170,7 @@ def movie_pipeline_chunked(store, *, chunk_frames: int,
                            reference_channel: int = 0, threshold: float = 0.2,
                            std: float = 3.0, block_size: int = 101,
                            capacity: int = 1024, batch: int = 2,
+                           airyscan: bool = False,
                            search_range: float = 100.0, memory: int = 3,
                            on_chunk=None, keep_labels: bool = True,
                            unet: Optional[dict] = None,
@@ -159,9 +180,9 @@ def movie_pipeline_chunked(store, *, chunk_frames: int,
     card's memory: ``store`` (an object with ``.data`` or any (T, C, Z, Y, X)
     array or memmap) is read in ``chunk_frames``-frame chunks, carrying
     across boundaries the tracker state and cumulative drift, the previous
-    chunk's last reference frame (so drift[0] of a chunk is the boundary
-    shift) and the adaptive-radius point set — chunked ids, labels and
-    tables equal the whole-movie run's exactly.
+    chunk's last (projected) reference frame (so drift[0] of a chunk is the
+    boundary shift) and the adaptive-radius point set — chunked ids, labels
+    and tables equal the whole-movie run's exactly.
 
     ``on_chunk(t0, chunk_dict)`` receives each chunk's host arrays; with
     ``keep_labels=False`` (or an ``on_chunk``) labels are not kept.
@@ -184,7 +205,7 @@ def movie_pipeline_chunked(store, *, chunk_frames: int,
         chunk = np.asarray(data[t0:t0 + C])
         if channels is not None:
             chunk = chunk[:, list(channels)]
-        refs_t = _reference_frames(chunk, reference_channel, dev)
+        refs_t = _reference_frames(chunk, reference_channel, dev, airyscan)
         labels, tabs, dr, overflow = _segment_program(
             refs_t, prev_ref, threshold, std, block_size, capacity, batch)
         prev_ref = refs_t[-1]

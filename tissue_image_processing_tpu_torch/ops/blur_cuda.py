@@ -65,8 +65,8 @@ def blur3d(x: torch.Tensor, kz: Sequence[float], ky: Sequence[float],
     _device.require_cuda_tensor(x, torch.float32, 3, "blur3d")
     lib = _device.load_library("blur3d", _SIGNATURES)
     Z, Y, X = x.shape
-    w = torch.tensor(taps[0] + taps[1] + taps[2], dtype=torch.float32,
-                     device=x.device)
+    w = _device.host_to_device(
+        torch.tensor(taps[0] + taps[1] + taps[2], dtype=torch.float32), x.device)
     out = torch.empty_like(x)
     rc = lib.blur3d_f32(_device.ptr(x), _device.ptr(out), _device.ptr(w), Z, Y,
                         X, len(taps[0]), len(taps[1]), len(taps[2]),
