@@ -14,27 +14,41 @@ Phases (any failure exits non-zero; no phase catches and continues):
    the blur on a batch of two thresholded 1024^2 frames, as
    ``watershed_segmentation_batch`` hands it over; the floods on the two
    frames row-stacked to 2112 x 1024; the projection's score and project
-   passes on one (2, 30, 1024, 1024) uint16 frame and its z-map. Blur to
-   rtol 2e-6 / atol 1e-4; the diffusions, the settle mask, the settle
-   (labels AND arrival stamps) and both projection passes bit for bit;
-   then the device time of each step of ``fused_projection`` on that frame;
+   passes on one (2, 30, 1024, 1024) uint16 frame and its z-map; the
+   segmented-scan component minimum on eight boundary maps of 1024^2
+   row-stacked to 8320 x 1024, as the U-Net post-process floods them (with
+   the index init and a poisoned init, against its plain version AND the
+   sweep kernel), and on two small winding masks; the settle and its mask
+   once more on that stacked U-Net input (lam == img, ties everywhere). Blur to rtol 2e-6 / atol
+   1e-4; the diffusions, the scan, the settle mask, the settle (labels AND
+   arrival stamps) and both projection passes bit for bit; then the device
+   time of each step of ``fused_projection`` on that frame;
 3. hold the fused projection against the unfused one on the card (the JAX
    tolerance class: >= 99% of pixels within one plane, median relative
-   error < 0.02 where the z-maps agree);
+   error < 0.02 where the z-maps agree), and ``unet_postprocess_batch`` on
+   the card against the CPU route (exact);
 4. drive ``movie_pipeline`` on a synthetic pre-projected movie (T=8, C=2,
-   Z=1, 1024^2) and then on the raw headline movie (T=8, C=2, Z=30,
-   1024^2 uint16), each with the launch counters zeroed just before and
-   read just after: every kernel of the path launched (the two projection
-   kernels once a frame), cells per frame and id persistence as expected,
-   ``movie_pipeline_chunked`` (3-frame chunks) identical to the unchunked
-   run; print frames/s and the pipeline's own stage seconds;
+   Z=1, 1024^2), on the raw headline movie (T=8, C=2, Z=30, 1024^2 uint16)
+   and on that movie through the U-Net branch at the reference
+   architecture's full width (depth 3, 128 base filters, bfloat16, batch 8,
+   seeded random weights with non-trivial BatchNorm statistics folded to
+   shifts, head bias calibrated so about half the pixels pass the HC
+   threshold), each with the launch counters zeroed just before and read
+   just after: every kernel of the path launched (the two projection
+   kernels once a frame; on the U-Net branch the scan, the settle and its
+   mask, and NOT the Bellman-Ford flood), cells per frame and id
+   persistence as expected, ``movie_pipeline_chunked`` (3-frame chunks)
+   identical to the unchunked run; print frames/s and the pipeline's own stage seconds;
 5. compare the card with the CPU path of the port on small movies: the
    pre-projected watershed path, the fused projection (2, 8, 128, 128)
-   against its plain route on CPU tensors, and a Z > 1 pipeline at a shape
-   the fused gate refuses (96^2, Z=6), so both take the unfused route;
+   against its plain route on CPU tensors, a Z > 1 pipeline at a shape
+   the fused gate refuses (96^2, Z=6), so both take the unfused route, and
+   the U-Net branch (probabilities within 0.01, two and a half bfloat16
+   steps: the card rounds each conv's output once more; foreground
+   agreement >= 0.99);
 6. print the kernel table as one JSON object (launches from the Z=30
-   run), then the card's line, and as the last line
-   ``{"ok": true, "device": {...}}``.
+   watershed run, the scan's from the U-Net run), then the card's line, and
+   as the last line ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or the JAX package.
 """
@@ -54,6 +68,7 @@ KERNEL_SOURCE = {
     "blur3d": "tissue_image_processing_tpu_torch/csrc/blur3d.cu",
     "proj_score": "tissue_image_processing_tpu_torch/csrc/projection.cu",
     "proj_project": "tissue_image_processing_tpu_torch/csrc/projection.cu",
+    "cc_scan": "tissue_image_processing_tpu_torch/csrc/cc_scan.cu",
 }
 FLOOD_SOURCE = "tissue_image_processing_tpu_torch/csrc/flood.cu"
 REPLACES = {
@@ -64,10 +79,14 @@ REPLACES = {
     "settle": "tissue_image_processing_tpu/ops/flood_pallas.py:1416",
     "proj_score": "tissue_image_processing_tpu/projection/fused.py:147",
     "proj_project": "tissue_image_processing_tpu/projection/fused.py:274",
+    "cc_scan": "tissue_image_processing_tpu/ops/flood_pallas.py:697",
 }
 KERNELS = ("blur3d", "diffusion_bf", "diffusion_cc", "settle_mask", "settle",
-           "proj_score", "proj_project")
+           "proj_score", "proj_project", "cc_scan")
 PROJECTION_KERNELS = ("proj_score", "proj_project")
+WATERSHED_KERNELS = ("blur3d", "diffusion_bf", "diffusion_cc", "settle_mask",
+                     "settle")
+UNET_KERNELS = ("cc_scan", "settle_mask", "settle")
 
 
 def card_line() -> str:
@@ -212,6 +231,155 @@ def check_kernels(frames):
     return rows
 
 
+def synthetic_predictions(movie_z1):
+    """(8, 1024, 1024, 2) softmax-like predictions on the card from the
+    synthetic movie's membranes, in x-major space: HC probability 0.9 in the
+    cell interiors (dim membrane channel), 0.02 on the membranes — cells as
+    HC blobs inside a connected background sea."""
+    import torch
+
+    ridge = torch.from_numpy(movie_z1[:, 0, 0].astype(np.float32)).cuda()
+    ridge = ridge.transpose(1, 2)
+    p0 = torch.where(ridge < 0.15 * ridge.amax(), 0.9, 0.02)
+    return torch.stack([p0, 1.0 - p0], dim=-1).contiguous()
+
+
+def check_cc_scan(preds):
+    """Phase 2 for the segmented scan: bit-exact against its plain version
+    and against the sweep kernel at the U-Net path's shape, with the index
+    init and a poisoned init; its time, iterations and bound; two small
+    winding masks."""
+    import torch
+
+    from tissue_image_processing_tpu_torch.models.predictor import _boundary
+    from tissue_image_processing_tpu_torch.ops import flood_cuda
+    from tissue_image_processing_tpu_torch.ops import watershed as ws
+
+    boundary, _ = _boundary(preds, 0.1, 5, 7)
+    img = ws.stack_frames(boundary.to(torch.float32))
+    H, W = img.shape
+    npx = H * W
+    cand = ws._binary_candidates(img)
+    idx = torch.arange(npx, dtype=torch.int32, device=img.device).reshape(H, W)
+    gen = torch.Generator(device=img.device).manual_seed(0)
+    poison = torch.rand(img.shape, device=img.device, generator=gen) < 0.01
+    err = 0.0
+    for name, init in (("index", idx), ("poisoned",
+                                        torch.where(poison, idx - npx, idx))):
+        got, iters = flood_cuda.cc_scan(cand, init, return_iterations=True)
+        want = flood_cuda.cc_scan_plain(cand, init)
+        assert torch.equal(got, want), f"cc_scan ({name}) disagrees with plain"
+        assert torch.equal(got, flood_cuda.cc_diffusion(cand, init)), \
+            f"cc_scan ({name}) disagrees with the sweep kernel"
+        err = max(err, max_abs_err(got, want))
+        print(f"cc_scan {H}x{W} {name} init: bit-exact vs plain and vs the "
+              f"sweep kernel, {iters} iterations")
+    _, iters = flood_cuda.cc_scan(cand, idx, return_iterations=True)
+    # mask (1 B) and init (4 B) read once, the result (4 B) written once; the
+    # function needs at least one compare and one min per pixel and direction
+    # (how many passes a schedule takes to get there is its own affair), so
+    # the byte term always sets the bound
+    row = dict(
+        err=err, ms=cuda_ms(lambda: flood_cuda.cc_scan(cand, idx), 5),
+        plain_ms=cuda_ms(lambda: flood_cuda.cc_scan_plain(cand, idx), 2),
+        bound=bound(9 * npx, 8 * npx), library_ms=None)
+    sweeps_ms = cuda_ms(lambda: flood_cuda.cc_diffusion(cand, idx), 1)
+    print(f"cc_scan {H}x{W}: zero set {float(cand.float().mean()):.3f} of the "
+          f"pixels, {iters} iterations, kernel {row['ms']:.4f} ms, plain "
+          f"{row['plain_ms']:.4f} ms, sweep kernel {sweeps_ms:.4f} ms, bound "
+          f"{row['bound'][0]:.4f} ms ({row['bound'][1]}), library: none")
+
+    # small hard cases: the open one-pixel rings of the JAX package's scan
+    # test and a one-pixel serpentine (one component, 48 turns)
+    rings = np.zeros((128, 128), bool)
+    lo, hi = 0, 127
+    while lo < hi - 8:
+        rings[lo, lo:hi] = True
+        rings[lo:hi, hi] = True
+        rings[hi, lo + 4:hi] = True
+        rings[lo + 4:hi, lo] = True
+        lo, hi = lo + 4, hi - 4
+    serpentine = np.zeros((96, 80), bool)
+    serpentine[::2] = True
+    serpentine[1::4, -1] = True
+    serpentine[3::4, 0] = True
+    rng = np.random.default_rng(5)
+    for name, mask in (("rings", rings), ("serpentine", serpentine)):
+        m = torch.from_numpy(mask).cuda()
+        init = torch.from_numpy(rng.integers(0, mask.size, mask.shape)
+                                .astype(np.int32)).cuda()
+        got, iters = flood_cuda.cc_scan(m, init, return_iterations=True)
+        assert torch.equal(got, flood_cuda.cc_scan_plain(m, init)), name
+        assert torch.equal(got, flood_cuda.cc_diffusion(m, init)), name
+        print(f"cc_scan {name} {mask.shape}: bit-exact vs plain and vs the "
+              f"sweep kernel, {iters} iterations")
+    return {"cc_scan": row}
+
+
+def check_settle_unet(preds):
+    """Phase 2 for the settle and its mask on the U-Net path's own input: the
+    eight boundary maps row-stacked to 8320 x 1024, where lam is the image
+    itself ({0, 1, +inf}, ties everywhere) and the seeds are the binary
+    minima by the scan. Labels, arrival stamps and the mask bit for bit
+    against the plain versions on the same card tensors; times and bounds."""
+    import torch
+
+    from tissue_image_processing_tpu_torch.models.predictor import _boundary
+    from tissue_image_processing_tpu_torch.ops import flood_cuda
+    from tissue_image_processing_tpu_torch.ops import watershed as ws
+
+    boundary, _ = _boundary(preds, 0.1, 5, 7)
+    img = ws.stack_frames(boundary.to(torch.float32))
+    H, W = img.shape
+    npx = H * W
+    seeds = ws.regional_minima_labels(img, scan=True, binary=True)
+    got = flood_cuda.settle_mask(img)
+    want = flood_cuda.settle_mask_plain(img)
+    assert torch.equal(got, want), "settle_mask (U-Net input) disagrees with plain"
+    mask_row = dict(
+        err=max_abs_err(got, want),
+        ms=cuda_ms(lambda: flood_cuda.settle_mask(img), 20),
+        plain_ms=cuda_ms(lambda: flood_cuda.settle_mask_plain(img), 3),
+        bound=bound(8 * npx, 8 * npx))
+    got_l, got_t = flood_cuda.settle(img, seeds)
+    want_l, want_t, sweeps = flood_cuda.settle_plain(img, seeds,
+                                                     return_sweeps=True)
+    assert torch.equal(got_l, want_l), "settle labels (U-Net input) disagree with plain"
+    assert torch.equal(got_t, want_t), "settle stamps (U-Net input) disagree with plain"
+    row = dict(
+        err=max(max_abs_err(got_l, want_l), max_abs_err(got_t, want_t)),
+        ms=cuda_ms(lambda: flood_cuda.settle(img, seeds), 5),
+        plain_ms=cuda_ms(lambda: flood_cuda.settle_plain(img, seeds), 2),
+        bound=bound(16 * npx, 40 * npx * sweeps))
+    print(f"settle {H}x{W} (U-Net input, lam == img, {int(seeds.max())} seeds):"
+          f" lbl and t bit-exact, {sweeps} sweeps, kernel {row['ms']:.4f} ms, "
+          f"plain {row['plain_ms']:.4f} ms, bound {row['bound'][0]:.4f} ms "
+          f"({row['bound'][1]}); settle_mask bit-exact, kernel "
+          f"{mask_row['ms']:.4f} ms, plain {mask_row['plain_ms']:.4f} ms, bound "
+          f"{mask_row['bound'][0]:.4f} ms ({mask_row['bound'][1]})")
+    return {"settle": row, "settle_mask": mask_row}
+
+
+def check_postprocess(preds):
+    """Phase 3 for the U-Net post-process: the card against the CPU route,
+    exactly (on the first two frames: the plain scan and settle are slow on
+    the CPU), and the cells a frame of all eight."""
+    import torch
+
+    from tissue_image_processing_tpu_torch.models.predictor import (
+        unet_postprocess_batch)
+
+    labels, hc = unet_postprocess_batch(preds)
+    want_l, want_hc = unet_postprocess_batch(preds[:2].cpu())
+    assert torch.equal(labels[:2].cpu(), want_l), "post-process labels: card != CPU"
+    assert torch.equal(hc[:2].cpu(), want_hc), "post-process HC mask: card != CPU"
+    cells = [int(l.max()) for l in labels]
+    assert min(cells) > 200, cells
+    ms = cuda_ms(lambda: unet_postprocess_batch(preds), 2)
+    print(f"unet_postprocess_batch {tuple(preds.shape)}: card == CPU on 2 "
+          f"frames (labels and HC mask), cells/frame {cells}, {ms:.3f} ms")
+
+
 def check_projection_kernels(stack):
     """Phase 2 for the projection: the score and project passes against their
     plain versions on one (2, 30, 1024, 1024) uint16 frame and its z-map,
@@ -354,21 +522,17 @@ def check_fused_vs_unfused(stack):
           f"error {med:.3g}")
 
 
-def check_pipeline(card: str, Z: int):
-    """Phase 4: one main path (Z == 1 pre-projected, or the raw Z-plane
-    movie), its launch counts, chunked == unchunked."""
+def check_pipeline(card: str, movie):
+    """Phase 4: one watershed main path (Z == 1 pre-projected, or the raw
+    Z-plane movie), its launch counts, chunked == unchunked."""
     import torch
 
     import tissue_image_processing_tpu_torch as tipt
     from tissue_image_processing_tpu_torch.core.pipeline import (
         movie_pipeline, movie_pipeline_chunked)
-    from tissue_image_processing_tpu_torch.utils.synthetic import make_movie
 
     kw = dict(batch=2, capacity=1024, block_size=101, std=3.0)
-    T = 8
-    t0 = time.time()
-    movie = make_movie(T=T, Z=Z, H=1024, W=1024, seed=0).astype(np.uint16)
-    print(f"movie {movie.shape} uint16 made in {time.time() - t0:.1f} s")
+    T, Z = movie.shape[0], movie.shape[2]
     movie_pipeline(movie[:2], **kw)  # warm: library loads, allocator, cuFFT plans
     torch.cuda.synchronize()
     tipt.reset_launches()
@@ -378,9 +542,10 @@ def check_pipeline(card: str, Z: int):
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = dict(tipt.LAUNCHES)
-    expected = [k for k in KERNELS if Z > 1 or k not in PROJECTION_KERNELS]
+    expected = WATERSHED_KERNELS + (PROJECTION_KERNELS if Z > 1 else ())
     missing = [k for k in expected if launches[k] == 0]
     assert not missing, f"kernels not launched on the main path: {missing}"
+    assert launches["cc_scan"] == 0, launches
     if Z > 1:
         assert all(launches[k] == T for k in PROJECTION_KERNELS), launches
     else:
@@ -410,11 +575,129 @@ def check_pipeline(card: str, Z: int):
     return launches
 
 
+def random_unet_config(frame, depth: int, base_filters: int, batch: int,
+                       seed: int = 0, share: float = 0.5):
+    """``movie_pipeline(unet=...)`` configuration with seeded random weights:
+    he / lecun-normal convs, BatchNorm scales, biases and running statistics
+    drawn away from the identity and folded to shifts by the predictor, and
+    the head bias set from one forward of ``frame`` ((C, Z, Y, X), projected
+    first when Z > 1) so that ``share`` of its pixels pass the 0.1 HC
+    threshold — random logits would else pass everywhere or nowhere and the
+    flood be trivial. Returns (config, share measured after calibration)."""
+    import torch
+
+    from tissue_image_processing_tpu_torch.models.predictor import (
+        SegmentationPredictor, prepare_batch)
+    from tissue_image_processing_tpu_torch.models.unet import build_unet
+    from tissue_image_processing_tpu_torch.projection.surface import (
+        project_timepoint_auto)
+
+    gen = torch.Generator().manual_seed(seed)
+    Y, X = frame.shape[-2:]
+    model = build_unet((X, Y, 2), depth=depth, base_filters=base_filters,
+                       dtype=torch.bfloat16, generator=gen)
+    ranges = {"weight": (0.5, 1.5), "bias": (-0.2, 0.2),
+              "running_mean": (0.0, 0.5), "running_var": (0.5, 1.5)}
+    with torch.no_grad():
+        for name, buf in model.state_dict().items():
+            leaf = name.rsplit(".", 1)[1]
+            if ".bn" in name and leaf in ranges:
+                lo, hi = ranges[leaf]
+                buf.copy_(lo + (hi - lo) * torch.rand(buf.shape, generator=gen))
+    pred = SegmentationPredictor(None, (2, Y, X), depth=depth,
+                                 base_filters=base_filters,
+                                 variables=model.state_dict())
+    assert pred.model.norm == "shift", "BatchNorm was not folded"
+    stack = torch.from_numpy(np.ascontiguousarray(frame)).cuda()
+    prj = (project_timepoint_auto(stack)[0] if stack.shape[1] > 1
+           else stack[:, 0].to(torch.float32))
+    x, (px, py) = prepare_batch(prj[None])
+    logit_cut = float(np.log(0.1 / 0.9))
+
+    def logit_gap():
+        p = pred._forward(x)[0, px:, py:].clamp_min(1e-30)
+        return torch.log(p[..., 0]) - torch.log(p[..., 1])
+
+    d = logit_gap().reshape(-1)
+    kth = max(1, int(round((1.0 - share) * d.numel())))
+    with torch.no_grad():
+        pred.model.head.bias[0] += logit_cut - torch.kthvalue(d, kth).values
+    got = float((logit_gap() > logit_cut).float().mean())
+    return pred.pipeline_config(batch=batch), got
+
+
+def check_unet_pipeline(card: str, movie):
+    """Phase 4 for the U-Net branch: the raw headline movie through
+    ``movie_pipeline(unet=...)`` at the reference architecture's full width,
+    its launch counts; then chunked == unchunked."""
+    import torch
+
+    import tissue_image_processing_tpu_torch as tipt
+    from tissue_image_processing_tpu_torch.core.pipeline import (
+        movie_pipeline, movie_pipeline_chunked)
+
+    T, Z = movie.shape[0], movie.shape[2]
+    cfg, share = random_unet_config(movie[0], depth=3, base_filters=128, batch=8)
+    kw = dict(capacity=2048)
+    movie_pipeline(movie, unet=cfg, **kw)  # warm: cuDNN plans at batch 8, allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tipt.reset_launches()
+    stages = {}
+    t0 = time.perf_counter()
+    out = movie_pipeline(movie, unet=cfg, timings=stages, **kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(tipt.LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    missing = [k for k in UNET_KERNELS + PROJECTION_KERNELS if launches[k] == 0]
+    assert not missing, f"kernels not launched on the U-Net path: {missing}"
+    assert launches["diffusion_bf"] == 0, launches  # binary route: no BF flood
+    assert launches["diffusion_cc"] == 0 and launches["blur3d"] == T, launches
+    assert all(launches[k] == T for k in PROJECTION_KERNELS), launches
+    assert launches["cc_scan"] >= 2 and launches["settle_mask"] == 1, launches
+
+    labels = out["labels"]
+    assert tuple(labels.shape) == (T, 1024, 1024), labels.shape
+    cells = [int(l.max()) for l in labels]
+    hc_share = float((labels > 0).float().mean())
+    assert min(cells) > 20, f"trivial flood: cells/frame {cells}"
+    assert np.isfinite(out["drifts"]).all() and np.abs(out["drifts"]).max() < 5
+    ids = out["ids"]
+    assert ids.shape == (T, kw["capacity"]) and (ids > 0).sum(axis=1).min() > 10
+    area = out["tables"].area
+    assert bool(torch.isfinite(area).all()) and float(area.sum()) > 0
+    valid = out["tables"].valid.sum(dim=1).tolist()
+    print(f"U-Net pipeline depth 3, 128 filters, bfloat16, batch 8, Z={Z}: "
+          f"p0 > 0.1 on {share:.3f} of frame 0 after calibration, cells/frame "
+          f"{cells} (valid by the area rule {valid}), labelled share "
+          f"{hc_share:.3f}, peak memory {peak_gib:.2f} GiB")
+    print(f"movie_pipeline(unet) {T} x 1024^2 Z={Z}: {T / secs:.3f} frames/s "
+          f"({secs:.3f} s) on {card}; launches {launches}")
+    print(f"stage seconds (U-Net, {T} x 1024^2, Z={Z}): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in stages.items()) + f" on {card}")
+
+    # chunked == unchunked, chunk 3 of T=8: the model sees groups of 3, 3
+    # and 2 frames instead of 8, and the tail chunk is partial
+    got = movie_pipeline_chunked(movie, chunk_frames=3, unet=cfg, **kw)
+    assert np.array_equal(got["labels"], labels.cpu().numpy()), \
+        "U-Net chunked labels differ"
+    assert np.array_equal(got["ids"], ids), "U-Net chunked ids differ"
+    assert np.array_equal(got["tables"].area.numpy(), area.cpu().numpy()), \
+        "U-Net chunked areas differ"
+    assert np.abs(got["drifts"] - out["drifts"]).max() <= 1e-4
+    print("U-Net pipeline: chunked(3) == unchunked (labels, ids, areas; "
+          "drifts to 1e-4)")
+    return launches
+
+
 def check_card_vs_cpu():
     """Phase 5: the card against the port's CPU path on small inputs."""
     import torch
 
     from tissue_image_processing_tpu_torch.core.pipeline import movie_pipeline
+    from tissue_image_processing_tpu_torch.models.predictor import (
+        prepare_batch, unet_from_config)
     from tissue_image_processing_tpu_torch.projection.fused import (
         fused_projection)
     from tissue_image_processing_tpu_torch.utils.synthetic import make_movie
@@ -429,6 +712,33 @@ def check_card_vs_cpu():
         agree[name] = float((on_card["labels"].cpu().numpy()
                              == on_cpu["labels"].numpy()).mean())
         assert agree[name] >= 0.995, f"card vs CPU label agreement {agree}"
+
+    # the U-Net branch, random weights: the card rounds every conv's output
+    # to bfloat16 once more than the CPU route. One bfloat16 step of a
+    # probability in [0.5, 1) is 2^-8 = 0.0039; the bar is 0.01, two and a
+    # half such steps (this movie reads 0.0015), far below what a wrong
+    # layout, flip or crop would give. Single mask pixels beside the 0.1
+    # threshold may flip: >= 0.99 of the pixels agree on labelled vs line /
+    # background (this movie reads 0.9975)
+    mv = make_movie(T=4, Z=1, H=128, W=128, seed=1)
+    cfg, share = random_unet_config(mv[0], depth=2, base_filters=8, batch=2,
+                                    seed=2)
+    on_card = movie_pipeline(mv, unet=cfg, capacity=256)
+    cpu_cfg = dict(cfg, params={k: v.cpu() for k, v in cfg["params"].items()})
+    on_cpu = movie_pipeline(mv, unet=cpu_cfg, capacity=256, device="cpu")
+    x, _ = prepare_batch(torch.from_numpy(mv[:, :, 0]))
+    with torch.no_grad():
+        dp = float((unet_from_config(cfg, torch.device("cuda"))(x.cuda()).cpu()
+                    - unet_from_config(cpu_cfg, torch.device("cpu"))(x)
+                    ).abs().max())
+    gl, wl = on_card["labels"].cpu().numpy(), on_cpu["labels"].numpy()
+    fg = float(((gl > 0) == (wl > 0)).mean())
+    assert dp <= 0.01, f"U-Net card vs CPU: max probability difference {dp}"
+    assert fg >= 0.99, f"U-Net card vs CPU: foreground agreement {fg}"
+    print(f"card vs CPU, U-Net branch (4 x 128^2, depth 2, 8 filters, p0 > 0.1 "
+          f"on {share:.3f}): max probability difference {dp:.4f}, foreground "
+          f"agreement {fg:.6f}, label agreement {float((gl == wl).mean()):.6f}, "
+          f"cells/frame {[int(l.max()) for l in wl]}")
 
     # the fused route on the card against its plain route on CPU tensors
     stack = torch.from_numpy(make_movie(T=1, Z=8, H=128, W=128, seed=3)[0]
@@ -470,26 +780,46 @@ def main() -> int:
     frames = _reference_frames(make_movie(T=2, Z=1, H=1024, W=1024, seed=2),
                                0, torch.device("cuda"))
     rows = check_kernels(frames)
+    t0 = time.time()
+    movie_z1 = make_movie(T=8, Z=1, H=1024, W=1024, seed=0).astype(np.uint16)
+    movie_z30 = make_movie(T=8, Z=30, H=1024, W=1024, seed=0).astype(np.uint16)
+    print(f"movies {movie_z1.shape} and {movie_z30.shape} uint16 made in "
+          f"{time.time() - t0:.1f} s")
+    preds = synthetic_predictions(movie_z1)
+    rows.update(check_cc_scan(preds))
+    unet_rows = check_settle_unet(preds)
+    check_postprocess(preds)
+    del preds
     stack = torch.from_numpy(make_movie(T=1, Z=30, H=1024, W=1024, seed=2)[0]
                              .astype(np.uint16)).cuda()
     rows.update(check_projection_kernels(stack))
     projection_breakdown(stack, card)
     check_fused_vs_unfused(stack)
     del stack
-    check_pipeline(card, Z=1)
-    launches = check_pipeline(card, Z=30)
+    check_pipeline(card, movie_z1)
+    launches = check_pipeline(card, movie_z30)
+    unet_launches = check_unet_pipeline(card, movie_z30)
     check_card_vs_cpu()
 
     table = []
     for name in KERNELS:
         r = rows[name]
+        at_unet = {}
+        if name in unet_rows:  # the same kernel on the U-Net path's input
+            u = unet_rows[name]
+            at_unet = {"max_abs_err_unet": u["err"], "ms_unet": u["ms"],
+                       "plain_ms_unet": u["plain_ms"],
+                       "bound_ms_unet": u["bound"][0],
+                       "bound_by_unet": u["bound"][1]}
         table.append({
             "name": name, "route": "cuda",
             "source": KERNEL_SOURCE.get(name, FLOOD_SOURCE),
-            "replaces": REPLACES[name], "launches": launches[name],
+            "replaces": REPLACES[name],
+            "launches": (unet_launches if name == "cc_scan" else launches)[name],
+            "launches_unet": unet_launches[name],
             "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
-            "library_ms": r["library_ms"]})
+            "library_ms": r["library_ms"], **at_unet})
     print(json.dumps({"kernels": table}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

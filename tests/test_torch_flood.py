@@ -3,7 +3,9 @@
 On the SAME float input every piece is bit-exact: regional minima, the
 Bellman-Ford flood levels, the connected-component diffusion, the settle
 (labels and arrival stamps), ``watershed`` and the row-stacked
-``watershed_batch``. The plain PyTorch versions (what CPU tensors run, and
+``watershed_batch``, each also on its ``binary=True, minima_scan=True`` route
+(the U-Net post-process's boundary maps), and the segmented-scan component
+minimum. The plain PyTorch versions (what CPU tensors run, and
 the yardstick of the CUDA kernels) are held against the JAX Pallas kernels
 run in interpret mode — as the JAX package's own tests run them on the CPU —
 and the whole flood against the JAX XLA sweep path.
@@ -149,11 +151,173 @@ def test_settle_mask_plain_matches_jax():
     np.testing.assert_array_equal(got, want)
 
 
+def _scan_masks():
+    """The masks of the JAX package's scan test (a percolation mask, a binary
+    sea, open one-pixel rings) and a one-pixel serpentine, whose single
+    component needs an iteration for every few turns."""
+    rng = np.random.default_rng(5)
+    perc = rng.random((128, 128)) < 0.5
+    sea = np.ones((128, 128), bool)
+    sea[20:40, :100] = False
+    sea[60:110, 30:31] = False
+    spiral = np.zeros((128, 128), bool)
+    lo, hi = 0, 127
+    while lo < hi - 8:
+        spiral[lo, lo:hi] = True
+        spiral[lo:hi, hi] = True
+        spiral[hi, lo + 4:hi] = True
+        spiral[lo + 4:hi, lo] = True
+        lo, hi = lo + 4, hi - 4
+    serpentine = np.zeros((96, 80), bool)
+    serpentine[::2] = True
+    serpentine[1::4, -1] = True
+    serpentine[3::4, 0] = True
+    return {"percolation": perc, "sea": sea, "spiral": spiral,
+            "serpentine": serpentine}
+
+
+SCAN_MASKS = _scan_masks()
+
+
+def _scan_init(shape, poisoned=False):
+    """An init below H*W, as the contract of both forms wants; ``poisoned``
+    pushes a tenth of the pixels to idx - n as the minima search does."""
+    rng = np.random.default_rng(7)
+    n = shape[0] * shape[1]
+    init = rng.integers(0, n, shape).astype(np.int32)
+    if poisoned:
+        init = np.where(rng.random(shape) < 0.1, init - n, init).astype(np.int32)
+    return init
+
+
+@pytest.mark.parametrize("name", sorted(SCAN_MASKS))
+@pytest.mark.parametrize("poisoned", [False, True], ids=["index", "poisoned"])
+def test_cc_scan_plain_matches_sweeps(name, poisoned):
+    mask = torch.from_numpy(SCAN_MASKS[name])
+    init = torch.from_numpy(_scan_init(mask.shape, poisoned))
+    want = flood_cuda.cc_diffusion_plain(mask, init)
+    got, iterations = flood_cuda.cc_scan_plain(mask, init,
+                                               return_iterations=True)
+    assert torch.equal(got, want)
+    assert torch.equal(flood_cuda.cc_diffusion(mask, init, scan=True), want)
+    if name == "serpentine":  # 48 turns: a scan cannot do it in a few passes
+        assert iterations > 8
+
+
+def test_cc_scan_default_init_is_first_raster_pixel():
+    mask = torch.from_numpy(SCAN_MASKS["sea"])
+    got = flood_cuda.cc_scan(mask)
+    assert torch.equal(got, flood_cuda.cc_diffusion_plain(mask))
+    assert int(got[0, 0]) == 0 and int(got[25, 5]) == -1
+
+
+@pytest.mark.parametrize("name", ["percolation", "sea", "spiral"])
+def test_cc_scan_plain_matches_pallas(interpret_pallas, name):
+    mask = SCAN_MASKS[name]
+    init = _scan_init(mask.shape)
+    want = np.asarray(jfp.cc_diffusion_pallas.__wrapped__(
+        jnp.asarray(mask), init=jnp.asarray(init), scan=True))
+    got = flood_cuda.cc_scan_plain(torch.from_numpy(mask),
+                                   torch.from_numpy(init)).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_cc_connectivity_matches_jax_packing():
+    mask = SCAN_MASKS["percolation"]
+    m = mask.astype(np.int32)
+    conn_h = np.pad(m[:, 1:] & m[:, :-1], ((0, 0), (1, 0)))
+    conn_v = np.pad(m[1:] & m[:-1], ((1, 0), (0, 0)))
+    got = flood_cuda.cc_connectivity(torch.from_numpy(mask))
+    assert got.dtype == torch.uint8
+    np.testing.assert_array_equal(got.numpy(), conn_h | (conn_v << 1))
+
+
+def _boundary_maps(B=3, h=96, w=80, seed=11):
+    """{0, 1} boundary maps like the U-Net post-process makes: rims of
+    random square cells, dilated."""
+    rng = np.random.default_rng(seed)
+    out = np.zeros((B, h, w), np.float32)
+    for b in range(B):
+        hc = np.zeros((h, w), bool)
+        for y, x in rng.integers(6, min(h, w) - 22, (7, 2)):
+            hc[y:y + 14, x:x + 14] = True
+        rim = hc & ~ndi.binary_erosion(hc, np.ones((7, 7)), border_value=1)
+        out[b] = ndi.binary_dilation(rim, np.ones((5, 5)))
+    return out
+
+
+def test_binary_minima_exact():
+    img = _boundary_maps(1)[0]
+    want = np.asarray(jws.regional_minima_labels(
+        jnp.asarray(img), use_pallas=False, binary=True))
+    for scan in (False, True):
+        got = tws.regional_minima_labels(torch.from_numpy(img), scan=scan,
+                                         binary=True).numpy()
+        np.testing.assert_array_equal(got, want)
+    # on a {0, c} map the binary route finds the general route's minima
+    np.testing.assert_array_equal(
+        tws.regional_minima_labels(torch.from_numpy(img)).numpy(), want)
+
+
+def test_binary_minima_pallas_scan_exact(interpret_pallas):
+    img = _boundary_maps(1, 64, 128)[0]
+    want = np.asarray(jws.regional_minima_labels.__wrapped__(
+        jnp.asarray(img), use_pallas=True, scan=True, binary=True))
+    got = tws.regional_minima_labels(torch.from_numpy(img), scan=True,
+                                     binary=True).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("lines", [True, False], ids=["lines", "filled"])
+def test_binary_watershed_exact(lines):
+    img = _boundary_maps(1)[0]
+    want = np.asarray(jws.watershed(jnp.asarray(img), watershed_line=lines,
+                                    minima_scan=True, binary=True))
+    got = tws.watershed(torch.from_numpy(img), watershed_line=lines,
+                        minima_scan=True, binary=True).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert got.max() >= 5
+
+
+def test_binary_watershed_with_markers_runs_the_flood():
+    """User markers on a binary map still need the Bellman-Ford levels."""
+    img = _boundary_maps(1)[0]
+    markers = np.zeros(img.shape, np.int32)
+    markers[2, 2], markers[50, 40] = 1, 2
+    want = np.asarray(jws.watershed(jnp.asarray(img), jnp.asarray(markers),
+                                    binary=True))
+    got = tws.watershed(torch.from_numpy(img), torch.from_numpy(markers),
+                        binary=True).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("zero_free", [None, 1], ids=["plain", "zero_free_frame"])
+def test_binary_watershed_batch_exact(zero_free):
+    """The stacked binary flood against JAX and against the per-frame flood;
+    a frame with no zero at all (all boundary) is one regional minimum and
+    must not disturb its neighbours in the stack."""
+    imgs = _boundary_maps(3)
+    if zero_free is not None:
+        imgs[zero_free] = 1.0
+    want = np.asarray(jws.watershed_batch(jnp.asarray(imgs), binary=True,
+                                          minima_scan=True))
+    got = tws.watershed_batch(torch.from_numpy(imgs), binary=True,
+                              minima_scan=True).numpy()
+    np.testing.assert_array_equal(got, want)
+    for b in range(3):
+        one = tws.watershed(torch.from_numpy(imgs[b]), binary=True,
+                            minima_scan=True).numpy()
+        np.testing.assert_array_equal(got[b], one)
+    if zero_free is not None:
+        assert (got[zero_free] == 1).all()
+
+
 @pytest.mark.parametrize("call", [
     lambda img, small: flood_cuda.bf_flood(img, small),
     lambda img, small: flood_cuda.cc_diffusion(img > 0.5, small.to(torch.int32)),
     lambda img, small: flood_cuda.settle(img, small),
-], ids=["bf_flood", "cc_diffusion", "settle"])
+    lambda img, small: flood_cuda.cc_scan(img > 0.5, small.to(torch.int32)),
+], ids=["bf_flood", "cc_diffusion", "settle", "cc_scan"])
 def test_flood_wrappers_reject_mismatched_shapes(call):
     img = torch.from_numpy(_blurred(64, 64, n_seeds=5, seed=2))
     small = torch.ones(32, 64, dtype=torch.int32)
@@ -182,3 +346,29 @@ def test_flood_kernels_match_plain(cuda_device):
     got_l, got_t = flood_cuda.settle(lam, seeds)
     want_l, want_t = flood_cuda.settle_plain(lam, seeds)
     assert torch.equal(got_l, want_l) and torch.equal(got_t, want_t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(SCAN_MASKS))
+def test_cc_scan_kernel_matches_plain(cuda_device, name):
+    mask = torch.from_numpy(SCAN_MASKS[name]).to(cuda_device)
+    for poisoned in (False, True):
+        init = torch.from_numpy(_scan_init(mask.shape, poisoned)).to(cuda_device)
+        got = flood_cuda.cc_scan(mask, init)
+        assert torch.equal(got, flood_cuda.cc_scan_plain(mask, init))
+        assert torch.equal(got, flood_cuda.cc_diffusion(mask, init))
+
+
+@pytest.mark.cuda
+def test_cc_scan_kernel_raises_on_wrong_dtype(cuda_device):
+    with pytest.raises(ValueError):
+        flood_cuda.cc_scan(torch.ones(64, 64, device=cuda_device))
+
+
+@pytest.mark.cuda
+def test_binary_watershed_batch_on_card_matches_cpu(cuda_device):
+    imgs = torch.from_numpy(_boundary_maps(3))
+    want = tws.watershed_batch(imgs, binary=True, minima_scan=True)
+    got = tws.watershed_batch(imgs.to(cuda_device), binary=True,
+                              minima_scan=True)
+    assert torch.equal(got.cpu(), want)

@@ -8,19 +8,28 @@ through the label matching. The port's chunked run must equal its unchunked
 run exactly. A raw z-stack movie (Z > 1, uint16, with and without the
 airyscan offset) goes through both packages too: each projects every frame
 (on the CPU both take the unfused route), and there the runs agree exactly.
-Also: the package imports no JAX, and asking for the card without one
-raises.
+The U-Net branch (``unet=``) goes through both packages with the same
+weights on Z == 1 and Z > 1 movies; there labels, tables and ids are equal and
+drifts agree to 1e-4 (see ``passthrough_variables`` for why the comparison
+can be exact). Also: the package imports no JAX, and asking for the card
+without one raises.
 """
 
 import subprocess
 import sys
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
 
 from tissue_image_processing_tpu.core.pipeline import movie_pipeline as j_pipe
+from tissue_image_processing_tpu.ops.brightness import (
+    normalize_channel as j_normalize)
+from tissue_image_processing_tpu_torch.models.predictor import (
+    SegmentationPredictor, prepare_batch, unet_from_config)
+from tissue_image_processing_tpu_torch.utils.state import unet_state_from_flax
 from tissue_image_processing_tpu_torch.core.pipeline import (
     movie_pipeline as t_pipe, movie_pipeline_chunked as t_pipe_chunked)
 from tissue_image_processing_tpu_torch import resolve_device
@@ -130,9 +139,10 @@ def test_import_pulls_in_no_jax():
         "import tissue_image_processing_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-        "       or m.startswith('tissue_image_processing_tpu.')\n"
-        "       or m == 'tissue_image_processing_tpu']\n"
+        "assert 'tissue_image_processing_tpu_torch.models.unet' in sys.modules\n"
+        "assert 'tissue_image_processing_tpu_torch.models.predictor' in sys.modules\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'jaxlib', 'flax', 'tissue_image_processing_tpu')]\n"
         "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
 
@@ -145,10 +155,22 @@ def test_cuda_without_card_raises(movie, monkeypatch):
         t_pipe(movie[:2], **KW)
 
 
-def test_projection_and_unet_branches_not_ported_yet(movie):
-    # the projection branch is ported (the Z > 1 tests below); U-Net is not
+@pytest.mark.parametrize("unet", [
+    {"params": None, "quantized": True},
+    {"params": None, "quantized": True, "depth": 2, "base_filters": 8},
+], ids=["quantized", "quantized_small"])
+def test_unet_later_slices_raise(movie, unet):
+    # the projection and U-Net branches are ported; the int8 path is not
     with pytest.raises(NotImplementedError):
-        t_pipe(movie[:2], unet={"params": None}, device="cpu", **KW)
+        t_pipe(movie[:2], unet=unet, device="cpu", **KW)
+    with pytest.raises(NotImplementedError):
+        t_pipe_chunked(movie[:2], chunk_frames=1, unet=unet, device="cpu", **KW)
+
+
+def test_unet_weights_path_raises():
+    with pytest.raises(NotImplementedError):
+        SegmentationPredictor("unet_weights.h5", (2, 128, 128), depth=2,
+                              base_filters=8, device="cpu")
 
 
 def _zmovie(airyscan: bool):
@@ -229,3 +251,190 @@ def test_z_stack_pipeline_on_card_matches_cpu():
     got = t_pipe(mv, device="cuda", **KW)
     want = t_pipe(mv, device="cpu", **KW)
     assert (got["labels"].cpu().numpy() == want["labels"].numpy()).mean() >= 0.995
+
+
+# --- the U-Net branch -----------------------------------------------------------
+
+UNET_DEPTH, UNET_FILTERS = 2, 8
+# HC (p0 > 0.1) where the normalised channel 1 exceeds 217.5 / 256 (about half
+# of the pixels of these movies, ~45 labels a frame): the threshold sits
+# midway between two neighbouring bfloat16 values
+_GAIN, _CUT = 64.0, 217.5 / 256
+
+
+def passthrough_variables(depth=UNET_DEPTH, base_filters=UNET_FILTERS):
+    """Flax variables (``norm="shift"``) of a U-Net that passes input channel
+    1 through its first and last blocks and skip connection by centre taps of
+    1, with every other weight 0, and reads the logits ``(GAIN * x - c, 0)``
+    off it.
+
+    Every conv output then is a sum with ONE nonzero term, so the bfloat16
+    forward does not depend on the order of summation and the two frameworks
+    agree to the last bit of the logits; only the softmax differs (1e-7). The
+    pipeline comparison therefore tests everything around the convolutions
+    exactly — normalisation, layout, padding, crop, post-process, flood,
+    tables, drift, tracking — while ``tests/test_torch_unet.py`` holds the
+    convolutions themselves to Flax on random weights."""
+    f = base_filters
+    n_blocks = 2 * depth + 1
+    widths = [f * 2 ** i for i in range(depth)]
+    cin = [2] + widths[:-1] + [widths[-1]] + [2 * w for w in reversed(widths)]
+    cout = widths + [2 * widths[-1]] + list(reversed(widths))
+    params = {}
+    for k in range(n_blocks):
+        params[f"DoubleConv_{k}"] = {
+            "Conv_0": {"kernel": np.zeros((3, 3, cin[k], cout[k]), np.float32),
+                       "bias": np.zeros(cout[k], np.float32)},
+            "Conv_1": {"kernel": np.zeros((3, 3, cout[k], cout[k]), np.float32),
+                       "bias": np.zeros(cout[k], np.float32)},
+            "Shift_0": np.zeros(cout[k], np.float32),
+            "Shift_1": np.zeros(cout[k], np.float32)}
+    for j, w in enumerate(reversed(widths)):
+        params[f"ConvTranspose_{j}"] = {
+            "kernel": np.zeros((3, 3, 2 * w, w), np.float32),
+            "bias": np.zeros(w, np.float32)}
+    first, last = params["DoubleConv_0"], params[f"DoubleConv_{n_blocks - 1}"]
+    first["Conv_0"]["kernel"][1, 1, 1, 0] = 1.0   # input channel 1 -> feature 0
+    first["Conv_1"]["kernel"][1, 1, 0, 0] = 1.0
+    last["Conv_0"]["kernel"][1, 1, f, 0] = 1.0    # the skip half of the concat
+    last["Conv_1"]["kernel"][1, 1, 0, 0] = 1.0
+    head = np.zeros((1, 1, f, 2), np.float32)
+    head[0, 0, 0, 0] = _GAIN
+    logit_cut = np.log(0.1 / 0.9)                  # p0 == 0.1
+    params["Conv_0"] = {"kernel": head, "bias": np.array(
+        [logit_cut - _GAIN * _CUT, 0.0], np.float32)}
+    return {"params": params}
+
+
+def _unet_configs(batch=2):
+    variables = passthrough_variables()
+    common = {"depth": UNET_DEPTH, "base_filters": UNET_FILTERS,
+              "norm": "shift", "batch": batch}
+    return ({"params": variables, **common},
+            {"params": unet_state_from_flax(variables), **common})
+
+
+def _assert_forward_margin(projections, cfg_j, cfg_t):
+    """The guard behind the exact comparison: on these frames no probability
+    lies as close to the 0.1 threshold as the two forwards lie apart."""
+    # imported here: the model module needs flax, which a machine that only
+    # runs the card-marked tests may lack
+    from tissue_image_processing_tpu.models.unet import UNet as JUNet
+
+    prj = np.asarray(projections, np.float32)
+    xj = jnp.transpose(jax.vmap(jax.vmap(j_normalize))(jnp.asarray(prj)),
+                       (0, 3, 2, 1)).astype(jnp.bfloat16)
+    pj = np.asarray(JUNet(depth=UNET_DEPTH, base_filters=UNET_FILTERS,
+                          dtype=jnp.bfloat16, norm="shift")
+                    .apply(cfg_j["params"], xj, train=False))[..., 0]
+    xt, _ = prepare_batch(torch.from_numpy(prj))
+    with torch.no_grad():
+        pt = unet_from_config(cfg_t, torch.device("cpu"))(xt)[..., 0].numpy()
+    err = np.abs(pt - pj).max()
+    margin = np.abs(pj - 0.1).min()
+    assert err < 1e-5 and margin > 100 * err, (err, margin)
+    share = (pj > 0.1).mean()
+    assert 0.2 < share < 0.8, share
+
+
+def _assert_unet_runs_equal(got, want, min_cells=8):
+    gl, wl = got["labels"].numpy(), np.asarray(want["labels"])
+    assert gl.shape == wl.shape
+    np.testing.assert_array_equal(gl, wl)
+    assert min(int(l.max()) for l in gl) >= min_cells
+    np.testing.assert_array_equal(got["ids"], want["ids"])
+    for field in ("area", "perimeter", "cx", "cy", "label", "valid",
+                  "n_neighbors", "neighbors", "bbox"):
+        np.testing.assert_array_equal(
+            getattr(got["tables"], field).numpy(),
+            np.asarray(getattr(want["tables"], field)), err_msg=field)
+    np.testing.assert_array_equal(got["neighbor_overflow"],
+                                  want["neighbor_overflow"])
+    np.testing.assert_allclose(got["drifts"], np.asarray(want["drifts"]),
+                               atol=1e-4)
+    assert np.abs(got["drifts"][1:]).max() > 0.3   # the movie does drift
+
+
+@pytest.fixture(scope="module")
+def unet_whole(movie):
+    cfg_j, cfg_t = _unet_configs()
+    return cfg_j, cfg_t, t_pipe(movie, unet=cfg_t, device="cpu", **KW)
+
+
+def test_unet_pipeline_matches_jax(movie, unet_whole):
+    cfg_j, cfg_t, got = unet_whole
+    _assert_forward_margin(movie[:, :, 0], cfg_j, cfg_t)
+    want = j_pipe(jnp.asarray(movie), unet=cfg_j, capacity=KW["capacity"])
+    _assert_unet_runs_equal(got, want)
+
+
+def test_unet_z_stack_pipeline_matches_jax():
+    """A raw Z > 1 movie: every channel is projected (the model input is the
+    channel pair), normalised and segmented; drifts come from the y-major
+    projection with swapped columns."""
+    from tissue_image_processing_tpu_torch.projection.surface import (
+        project_timepoint_auto as t_proj)
+
+    mv = _zmovie(False)
+    cfg_j, cfg_t = _unet_configs()
+    prj = np.stack([t_proj(torch.from_numpy(f))[0].numpy() for f in mv])
+    _assert_forward_margin(prj, cfg_j, cfg_t)
+    got = t_pipe(mv, unet=cfg_t, device="cpu", **KW)
+    want = j_pipe(jnp.asarray(mv), unet=cfg_j, capacity=KW["capacity"])
+    _assert_unet_runs_equal(got, want)
+
+
+def test_unet_drift_columns_follow_the_labels(movie, unet_whole):
+    """The watershed branch measures drift on x-major frames, the U-Net
+    branch on the y-major projection with the columns swapped: on the same
+    movie the two chains must agree."""
+    _, _, got = unet_whole
+    ws = t_pipe(movie, device="cpu", **KW)
+    np.testing.assert_allclose(got["drifts"], ws["drifts"], atol=0.05)
+
+
+@pytest.mark.parametrize("chunk", [3, 4])
+def test_unet_chunked_equals_unchunked(movie, unet_whole, chunk):
+    _, cfg_t, whole = unet_whole
+    got = t_pipe_chunked(movie, chunk_frames=chunk, unet=cfg_t, device="cpu",
+                         **KW)
+    np.testing.assert_array_equal(got["ids"], whole["ids"])
+    np.testing.assert_array_equal(got["labels"], whole["labels"].numpy())
+    np.testing.assert_array_equal(got["tables"].area.numpy(),
+                                  whole["tables"].area.numpy())
+    np.testing.assert_allclose(got["drifts"], whole["drifts"], atol=1e-4)
+
+
+def test_unet_chunked_channels_select_the_model_pair(movie, unet_whole):
+    """``channels=`` picks the (atoh, zo) pair out of a wider store."""
+    _, cfg_t, whole = unet_whole
+    wide = np.concatenate([np.zeros_like(movie[:, :1]), movie[:, :1],
+                           movie[:, :1] * 0.5, movie[:, 1:]], axis=1)
+    got = t_pipe_chunked(wide, chunk_frames=4, unet=cfg_t, channels=[1, 3],
+                         device="cpu", **KW)
+    np.testing.assert_array_equal(got["ids"], whole["ids"])
+    np.testing.assert_array_equal(got["labels"], whole["labels"].numpy())
+
+
+def test_unet_batch_size_leaves_results_unchanged(movie, unet_whole):
+    _, cfg_t, whole = unet_whole
+    timings = {}
+    got = t_pipe(movie, unet={**cfg_t, "batch": 4}, device="cpu",
+                 timings=timings, **KW)   # T = 6: groups of 3
+    assert sorted(timings) == sorted(["upload", "normalize", "unet",
+                                      "postprocess", "tables", "drift",
+                                      "adaptive_radii", "track"])
+    np.testing.assert_array_equal(got["ids"], whole["ids"])
+    np.testing.assert_array_equal(got["labels"].numpy(),
+                                  whole["labels"].numpy())
+
+
+@pytest.mark.cuda
+def test_unet_pipeline_on_card_matches_cpu(movie, unet_whole):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    _, cfg_t, whole = unet_whole
+    got = t_pipe(movie, unet=cfg_t, device="cuda", **KW)
+    np.testing.assert_array_equal(got["labels"].cpu().numpy(),
+                                  whole["labels"].numpy())
+    np.testing.assert_array_equal(got["ids"], whole["ids"])

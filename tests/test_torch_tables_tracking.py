@@ -53,6 +53,9 @@ def _stripes(h=32, w=64):
     (make_cell_labels(128, 128, n_seeds=40, seed=3), 64, 192),
     (make_cell_labels(96, 160, n_seeds=25, seed=7), 32, 192),   # > cap labels
     (_stripes(), 64, 4),                                        # overflow
+    # labels far above the capacity: their votes fall past the table and are
+    # dropped, as by the JAX scatter
+    (make_cell_labels(128, 128, n_seeds=60, seed=5), 16, 192),
 ])
 def test_frame_cellinfo_checked_exact(labels, cap, k):
     want, want_over = jct.frame_cellinfo_checked(jnp.asarray(labels),

@@ -27,13 +27,13 @@ __all__ = ["LAUNCHES", "KERNEL_SOURCES", "resolve_device", "build_kernels",
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
-KERNEL_SOURCES = ("blur3d", "flood", "projection")
+KERNEL_SOURCES = ("blur3d", "flood", "projection", "cc_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES: Dict[str, int] = {"blur3d": 0, "diffusion_bf": 0,
                             "diffusion_cc": 0, "settle_mask": 0, "settle": 0,
-                            "proj_score": 0, "proj_project": 0}
+                            "proj_score": 0, "proj_project": 0, "cc_scan": 0}
 _libs: Dict[str, ctypes.CDLL] = {}
 
 

@@ -5,16 +5,20 @@ Port of the flood kernels of ``tissue_image_processing_tpu/ops/flood_pallas.py``
 - :func:`bf_flood` — phase-1 flood levels, lam = minimax path elevation from
   any seed (Bellman-Ford on the (min, max) semiring; ``bf_flood_pallas``);
 - :func:`cc_diffusion` — 4-connected component minimum of an initial value
-  (``cc_diffusion_pallas`` with its sweep kernels);
+  (``cc_diffusion_pallas``): by Jacobi sweeps, or with ``scan=True`` by
+  :func:`cc_scan`, iterated segmented row / column min-scans
+  (``_cc_scan_kernel``; ``csrc/cc_scan.cu``), the route for image-scale
+  components such as the background sea of a binary boundary map;
 - :func:`settle_mask` — the lam-comparison bitmask (``_settle_mask``);
 - :func:`settle` — the phase-2 Meyer settle with arrival stamps
   (``settle_pallas_loop``), in the unpacked label domain, so it needs neither
   the packed form's 21-bit label guard nor its 1022-sweep stamp cap.
 
-All four are exact: the CUDA kernels (``csrc/flood.cu``) and the plain
-versions compute the same Jacobi sweeps and agree bit for bit. The diffusion
-fixpoints do not depend on the schedule; the settle's stamps do, and both
-versions keep exact Jacobi sweeps (stamp = sweep index, seeds 0).
+All are exact: the CUDA kernels (``csrc/flood.cu``) and the plain versions
+compute the same Jacobi sweeps and agree bit for bit. The diffusion fixpoints
+do not depend on the schedule, so the scan route returns the very array the
+sweep route returns; the settle's stamps do depend on it, and both versions
+keep exact Jacobi sweeps (stamp = sweep index, seeds 0).
 
 CPU tensors run the plain versions; CUDA tensors launch the kernels or raise.
 """
@@ -30,8 +34,9 @@ from tissue_image_processing_tpu_torch import _device
 from tissue_image_processing_tpu_torch.ops.morphology import shift2d
 
 __all__ = ["bf_flood", "bf_flood_plain", "cc_diffusion", "cc_diffusion_plain",
+           "cc_scan", "cc_scan_plain", "cc_connectivity",
            "settle_mask", "settle_mask_plain", "settle", "settle_plain",
-           "BIG_T", "SWEEP_BATCH"]
+           "BIG_T", "SWEEP_BATCH", "SCAN_MAX_ITERS"]
 
 # Arrival stamp of pixels that never settle. The line pass only compares
 # stamps of settled, labelled pixels, so the value is never read; it is the
@@ -40,6 +45,13 @@ BIG_T = (1 << 30) - 1
 # Sweeps per batch: only the last sweep of a batch reports "changed", and the
 # host reads that flag once per batch (the TPU kernels' _SWEEP_BATCH).
 SWEEP_BATCH = 8
+# Scan iterations after which :func:`cc_scan` raises instead of returning an
+# unconverged array. One iteration carries a value along a whole straight
+# run in each of the four directions, so the count grows with the turns of
+# the most winding component: a few on boundary maps, H / 2 on a one-pixel
+# serpentine.
+SCAN_MAX_ITERS = 1 << 16
+_SCAN_BIG = (1 << 31) - 1
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -48,11 +60,16 @@ _SIGNATURES = {
     "settle_mask": (_P, _P, _I, _I, _P),
     "settle_sweeps": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
+_SCAN_SIGNATURES = {"cc_scan_iteration": (_P, _P, _P, _I, _I, _P)}
 _INF = float("inf")
 
 
 def _lib():
     return _device.load_library("flood", _SIGNATURES)
+
+
+def _scan_lib():
+    return _device.load_library("cc_scan", _SCAN_SIGNATURES)
 
 
 def _min4(st: torch.Tensor, fill) -> torch.Tensor:
@@ -155,12 +172,16 @@ def cc_diffusion_plain(mask: torch.Tensor, init: torch.Tensor | None = None,
     return (out, sweeps) if return_sweeps else out
 
 
-def cc_diffusion(mask: torch.Tensor,
-                 init: torch.Tensor | None = None) -> torch.Tensor:
+def cc_diffusion(mask: torch.Tensor, init: torch.Tensor | None = None,
+                 scan: bool = False) -> torch.Tensor:
     """4-connected components of ``mask`` by min-diffusion: each component
     gets the MIN of its pixels' ``init`` values (default: the flat pixel
     index, i.e. the component's first raster pixel); -1 outside the mask.
-    ``init`` may hold negative values to poison whole components."""
+    ``init`` may hold negative values to poison whole components, and must
+    stay below H*W. ``scan`` takes the segmented-scan route
+    (:func:`cc_scan`), which returns the same array."""
+    if scan:
+        return cc_scan(mask, init)
     if init is not None:
         _require_like(mask, init, "cc_diffusion init")
     if mask.device.type == "cpu":
@@ -185,6 +206,100 @@ def cc_diffusion(mask: torch.Tensor,
 
     _run_batches(launch, "diffusion_cc")
     return torch.where(mask, a, -1)
+
+
+# --- connected-component minimum by segmented scans ---------------------------
+
+def cc_connectivity(mask: torch.Tensor) -> torch.Tensor:
+    """The scan's link map, uint8: bit 0 = this pixel and its left neighbour
+    are both in the mask, bit 1 = this pixel and the one above are. Pixels in
+    the first column / row carry no such link."""
+    m = mask.to(torch.uint8)
+    conn = torch.zeros_like(m)
+    conn[:, 1:] = m[:, 1:] & m[:, :-1]
+    conn[1:] |= (m[1:] & m[:-1]) << 1
+    return conn
+
+
+def _scan_line(v: torch.Tensor, g: torch.Tensor, dim: int,
+               reverse: bool) -> torch.Tensor:
+    """Segmented inclusive min-scan of ``v`` along ``dim`` by doubling.
+    ``g[i]`` says pixel i is joined to the pixel before it in scan order;
+    after the step with offset k, ``v[i]`` is the minimum over the joined run
+    of the last 2k pixels ending at i."""
+    n = v.shape[dim]
+    sy, sx = (1, 0) if dim == 0 else (0, 1)
+    if reverse:
+        sy, sx = -sy, -sx
+    k = 1
+    while k < n:
+        vs = shift2d(v, sy * k, sx * k, _SCAN_BIG)
+        gs = shift2d(g, sy * k, sx * k, False)
+        v = torch.where(g, torch.minimum(v, vs), v)
+        g = g & gs
+        k *= 2
+    return v
+
+
+def cc_scan_plain(mask: torch.Tensor, init: torch.Tensor | None = None,
+                  return_iterations: bool = False):
+    """Plain version of :func:`cc_scan`: each iteration is a row scan
+    forwards and backwards, then a column scan down and up, each a
+    log-doubling segmented min-scan over the whole image."""
+    lbl, _ = _cc_init(mask, init)
+    conn = cc_connectivity(mask)
+    left, up = (conn & 1) != 0, (conn & 2) != 0
+    right, down = shift2d(left, 0, -1, False), shift2d(up, -1, 0, False)
+    iterations = 0
+    while True:
+        new = _scan_line(lbl, left, 1, False)
+        new = _scan_line(new, right, 1, True)
+        new = _scan_line(new, up, 0, False)
+        new = _scan_line(new, down, 0, True)
+        iterations += 1
+        if torch.equal(new, lbl):
+            break
+        lbl = new
+    out = torch.where(mask, lbl, -1)
+    return (out, iterations) if return_iterations else out
+
+
+def cc_scan(mask: torch.Tensor, init: torch.Tensor | None = None,
+            return_iterations: bool = False):
+    """:func:`cc_diffusion` by iterated segmented row / column min-scans: one
+    iteration carries a value along every straight run of the mask, so
+    image-spanning components converge in a few iterations where the sweeps
+    need one per pixel of diameter. Iterates to the fixpoint (the last
+    iteration changes nothing) and raises past ``SCAN_MAX_ITERS``."""
+    if init is not None:
+        _require_like(mask, init, "cc_scan init")
+    if mask.dim() != 2 or mask.dtype != torch.bool:
+        raise ValueError("cc_scan: mask must be a 2-D bool tensor")
+    if mask.device.type == "cpu":
+        return cc_scan_plain(mask, init, return_iterations)
+    lib = _scan_lib()
+    H, W = mask.shape
+    lbl, _ = _cc_init(mask, init)
+    lbl = lbl.contiguous()
+    conn = cc_connectivity(mask).contiguous()
+    _device.require_cuda_tensor(lbl, torch.int32, 2, "cc_scan")
+    _device.require_cuda_tensor(conn, torch.uint8, 2, "cc_scan")
+    flag = torch.empty((1,), dtype=torch.int32, device=mask.device)
+    iterations = 0
+    while True:
+        if iterations >= SCAN_MAX_ITERS:
+            raise RuntimeError(
+                f"cc_scan: no fixpoint after {SCAN_MAX_ITERS} iterations")
+        rc = lib.cc_scan_iteration(_device.ptr(conn), _device.ptr(lbl),
+                                   _device.ptr(flag), H, W,
+                                   _device.stream_ptr())
+        _device.check_cuda(lib, rc, "cc_scan")
+        _device.LAUNCHES["cc_scan"] += 1
+        iterations += 1
+        if int(flag.item()) == 0:
+            break
+    out = torch.where(mask, lbl, -1)
+    return (out, iterations) if return_iterations else out
 
 
 # --- phase 2: the settle ------------------------------------------------------

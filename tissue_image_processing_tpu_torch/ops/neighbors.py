@@ -57,6 +57,9 @@ def _adjacency_impl(labels, num_labels, working_mask, compact_k):
         flat_idx = votes.reshape(-1)
     else:
         flat_idx = key.reshape(-1)
+    # a label above num_labels gives a key past the table: drop the vote, as
+    # the JAX package's scatter drops out-of-range indices
+    flat_idx = torch.where(flat_idx < ns * ns, flat_idx, 0)
     adj = torch.zeros(ns * ns, dtype=torch.bool, device=labels.device)
     adj[flat_idx.to(torch.int64)] = True
     adj[0] = False

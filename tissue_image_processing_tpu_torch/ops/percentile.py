@@ -15,6 +15,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tissue_image_processing_tpu_torch._numerics import fma_f32
+
 __all__ = ["percentile", "masked_percentile"]
 
 # the JAX package's size rules (ops/percentile.py there)
@@ -88,8 +90,12 @@ def percentile(x: torch.Tensor, q) -> torch.Tensor:
         return masked_percentile(flat, torch.ones_like(flat, dtype=torch.bool), q)
     s = torch.sort(flat).values
     n1 = flat.shape[0] - 1
-    pos = np.float32(_q_frac(q)) * np.float32(n1)
+    # XLA compiles jnp.percentile's (q / 100) * (n - 1) with the static
+    # n - 1 as q * (0.01f * (n - 1)) and its interpolation as one fused
+    # multiply-add on top of the rounded low product; both are reproduced
+    # here so the result equals the JAX package's bit for bit
+    pos = np.float32(q) * np.float32(np.float32(0.01) * np.float32(n1))
     lo, hi = np.floor(pos), np.ceil(pos)
     frac = float(pos - lo)
     v_lo, v_hi = s[min(max(int(lo), 0), n1)], s[min(max(int(hi), 0), n1)]
-    return v_lo * (1.0 - frac) + v_hi * frac
+    return fma_f32(v_hi, frac, v_lo * float(np.float32(1.0) - np.float32(frac)))

@@ -1,8 +1,11 @@
 """Watershed segmentation with watershed lines.
 
-Port of ``tissue_image_processing_tpu/ops/watershed.py`` (the general,
-non-binary flood of the threshold + blur path). The algorithm is the JAX
-package's two-phase data-parallel flood:
+Port of ``tissue_image_processing_tpu/ops/watershed.py``: the general flood
+of the threshold + blur path, and the ``binary=True`` route for the {0, c}
+boundary maps of the U-Net post-process (seeds are the components of the zero
+set, found by the segmented-scan kernel with ``minima_scan=True``, and the
+flood levels equal the image, so the Bellman-Ford phase drops away). The
+algorithm is the JAX package's two-phase data-parallel flood:
 
 1. seeds: regional minima plateaus, 4-connected, numbered 1..N in raster
    order (:func:`regional_minima_labels`, the kernel-branch formulation: one
@@ -71,16 +74,45 @@ def minima_candidates(image: torch.Tensor):
     return candidate, torch.where(bad & candidate, idx2 - H * W, idx2)
 
 
-def regional_minima_labels(image: torch.Tensor) -> torch.Tensor:
+def _binary_candidates(img: torch.Tensor) -> torch.Tensor:
+    """Minima candidates of a {0, c} boundary map: the zero set, plus the
+    whole finite region of any frame that holds no zero at all (an all-c
+    frame is one regional minimum). Frames are the row segments between
+    all-inf rows (the separator bands of a stacked batch); inside one
+    rectangle a c-component beside zeros always touches a zero and escapes,
+    so a zero-free segment is the only such case."""
+    candidate = img == 0
+    finite = img < _INF
+    finite_row = finite.any(dim=1)
+    zero_row = candidate.any(dim=1)
+    seg_id = torch.cumsum((~finite_row).to(torch.int64), 0)
+    seg_any = torch.zeros(img.shape[0] + 1, dtype=torch.int32,
+                          device=img.device)
+    seg_any.scatter_reduce_(0, seg_id, zero_row.to(torch.int32), "amax")
+    return candidate | (finite & (seg_any[seg_id] == 0)[:, None])
+
+
+def regional_minima_labels(image: torch.Tensor, scan: bool = False,
+                           binary: bool = False) -> torch.Tensor:
     """Label regional minima plateaus 1..N in raster order (0 elsewhere).
 
     A plateau is a regional minimum when it has no lower 8-neighbour and no
-    equal-valued 8-neighbour outside it; non-finite pixels never are."""
+    equal-valued 8-neighbour outside it; non-finite pixels never are.
+
+    ``scan`` sends the two component diffusions through the segmented-scan
+    kernel: the route for image-scale plateaus (binary boundary maps), where
+    the sweeps need one pass per pixel of diameter. ``binary`` promises a
+    {0, c} boundary map (+inf bands allowed): every zero plateau is then a
+    minimum and none escapes, so the candidates are the zero set itself
+    (:func:`_binary_candidates`) and nothing is poisoned."""
     H, W = image.shape
     n = H * W
     idx2 = torch.arange(n, dtype=torch.int32, device=image.device).reshape(H, W)
-    candidate, init = minima_candidates(image)
-    comp = cc_diffusion(candidate, init=init)
+    if binary:
+        candidate, init = _binary_candidates(image.to(torch.float32)), idx2
+    else:
+        candidate, init = minima_candidates(image)
+    comp = cc_diffusion(candidate, init=init, scan=scan)
     ok = comp >= 0
     is_root = ok & (comp == idx2)
     # dense raster-order rank of each root (exact integer prefix count),
@@ -88,16 +120,22 @@ def regional_minima_labels(image: torch.Tensor) -> torch.Tensor:
     rank = torch.cumsum(is_root.reshape(-1).to(torch.int32), 0,
                         dtype=torch.int32).reshape(H, W)
     init2 = torch.where(is_root, rank, n)
-    seeds = cc_diffusion(ok, init=init2)
+    seeds = cc_diffusion(ok, init=init2, scan=scan)
     return torch.where(seeds > 0, seeds, 0).to(torch.int32)
 
 
 def _watershed_core(image: torch.Tensor, markers: torch.Tensor | None,
-                    watershed_line: bool) -> torch.Tensor:
+                    watershed_line: bool, minima_scan: bool = False,
+                    binary: bool = False) -> torch.Tensor:
     img = image.to(torch.float32)
-    seeds = (regional_minima_labels(img) if markers is None
-             else markers.to(torch.int32))
-    lam = bf_flood(img, seeds)
+    if markers is None:
+        seeds = regional_minima_labels(img, scan=minima_scan, binary=binary)
+    else:
+        seeds = markers.to(torch.int32)
+    # On a {0, c} map flooded from its own minima lam == img exactly: a zero
+    # pixel reaches its seed at level 0 and every path from a positive pixel
+    # peaks at c. User markers need the real flood levels even then.
+    lam = img if binary and markers is None else bf_flood(img, seeds)
     q_lam = [_nbr_val(lam, dy, dx, _INF) for dy, dx in _NBRS4]
     lbl_raw, t = settle(lam, seeds)
     lbl = torch.clamp(lbl_raw, min=0)
@@ -136,14 +174,18 @@ def _apply_lines(lbl, t, lam, q_lam, watershed_line):
 
 
 def watershed(image: torch.Tensor, markers: torch.Tensor | None = None,
-              watershed_line: bool = True) -> torch.Tensor:
+              watershed_line: bool = True, minima_scan: bool = False,
+              binary: bool = False) -> torch.Tensor:
     """Flood ``image`` from its regional minima (or from ``markers``).
 
     Returns int32 labels 1..N; with ``watershed_line`` the one-pixel
-    separating lines are 0."""
+    separating lines are 0. ``binary`` promises a {0, c} boundary map (c > 0
+    constant, +inf bands allowed): seeds are the components of the zero set
+    and the Bellman-Ford phase is skipped; ``minima_scan`` finds the seeds
+    with the segmented-scan kernel (see :func:`regional_minima_labels`)."""
     if image.dim() != 2:
         raise ValueError(f"watershed takes a 2-D image, got {tuple(image.shape)}")
-    return _watershed_core(image, markers, watershed_line)
+    return _watershed_core(image, markers, watershed_line, minima_scan, binary)
 
 
 def stack_frames(images: torch.Tensor) -> torch.Tensor:
@@ -158,9 +200,12 @@ def stack_frames(images: torch.Tensor) -> torch.Tensor:
     return stacked
 
 
-def watershed_batch(images: torch.Tensor,
-                    watershed_line: bool = True) -> torch.Tensor:
-    """Flood B frames as ONE row-stacked image (:func:`stack_frames`).
+def watershed_batch(images: torch.Tensor, watershed_line: bool = True,
+                    binary: bool = False,
+                    minima_scan: bool = False) -> torch.Tensor:
+    """Flood B frames as ONE row-stacked image (:func:`stack_frames`), however
+    large the batch (the JAX package splits a stack that outgrows the TPU's
+    VMEM; the labels do not depend on the split).
 
     +inf bands produce no seeds and never donate to or block a finite
     pixel, so each frame's labels equal its own flood; seeds are numbered in
@@ -170,7 +215,7 @@ def watershed_batch(images: torch.Tensor,
     B, H, W = images.shape
     slot = H + _STACK_SEP
     stacked = stack_frames(images)
-    out = _watershed_core(stacked, None, watershed_line)
+    out = _watershed_core(stacked, None, watershed_line, minima_scan, binary)
     labs = out[:B * slot].reshape(B, slot, W)[:, :H]
     big = torch.iinfo(torch.int32).max
     mins = torch.where(labs > 0, labs, big).reshape(B, -1).amin(dim=1)
