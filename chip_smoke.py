@@ -15,14 +15,20 @@ Phases (any failure exits non-zero; no phase catches and continues):
    ``watershed_segmentation_batch`` hands it over; the floods on the two
    frames row-stacked to 2112 x 1024; the projection's score and project
    passes on one (2, 30, 1024, 1024) uint16 frame and its z-map; the
-   segmented-scan component minimum on eight boundary maps of 1024^2
+   union-find component minimum on eight boundary maps of 1024^2
    row-stacked to 8320 x 1024, as the U-Net post-process floods them (with
    the index init and a poisoned init, against its plain version AND the
-   sweep kernel), and on two small winding masks; the settle and its mask
-   once more on that stacked U-Net input (lam == img, ties everywhere). Blur to rtol 2e-6 / atol
-   1e-4; the diffusions, the scan, the settle mask, the settle (labels AND
-   arrival stamps) and both projection passes bit for bit; then the device
-   time of each step of ``fused_projection`` on that frame;
+   relaxation kernel), on a coil, a checkerboard and an all-true image of
+   that size, on shapes that no tile divides and on two small winding
+   masks; the two diffusions also on an image-wide plateau and a ragged
+   shape; every run of the redesigned kernels twice, the results equal;
+   the settle and its mask once more on that stacked U-Net input (lam ==
+   img, ties everywhere). Blur to rtol 2e-6 / atol 1e-4; the diffusions,
+   the component minimum, the settle mask, the settle (labels AND arrival
+   stamps) and both projection passes bit for bit; times are the median of
+   five repeats of a CUDA-event bracket, the redesigned kernels' with their
+   spread; then the device time of each step of ``fused_projection`` on
+   that frame;
 3. hold the fused projection against the unfused one on the card (the JAX
    tolerance class: >= 99% of pixels within one plane, median relative
    error < 0.02 where the z-maps agree), and ``unet_postprocess_batch`` on
@@ -35,7 +41,8 @@ Phases (any failure exits non-zero; no phase catches and continues):
    shifts, head bias calibrated so about half the pixels pass the HC
    threshold), each with the launch counters zeroed just before and read
    just after: every kernel of the path launched (the two projection
-   kernels once a frame; on the U-Net branch the scan, the settle and its
+   kernels once a frame; one launch a diffusion call, four a component
+   minimum; on the U-Net branch the component minimum, the settle and its
    mask, and NOT the Bellman-Ford flood), cells per frame and id
    persistence as expected, ``movie_pipeline_chunked`` (3-frame chunks)
    identical to the unchunked run; print frames/s and the pipeline's own stage seconds;
@@ -47,7 +54,8 @@ Phases (any failure exits non-zero; no phase catches and continues):
    steps: the card rounds each conv's output once more; foreground
    agreement >= 0.99);
 6. print the kernel table as one JSON object (launches from the Z=30
-   watershed run, the scan's from the U-Net run), then the card's line, and
+   watershed run, the component minimum's from the U-Net run), then the
+   card's line, and
    as the last line ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or the JAX package.
@@ -95,21 +103,59 @@ def card_line() -> str:
         check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn()`` over ``reps`` calls after one warm call,
-    bracketed by CUDA events."""
+REPEATS = 5
+
+
+def cuda_ms_spread(fn, reps: int):
+    """Device time of ``fn()``: after one warm call, ``REPEATS`` brackets of
+    CUDA events around ``reps`` calls each. Returns (median, least, most) of
+    the brackets' means."""
     import torch
 
     fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
+    means = []
+    for _ in range(REPEATS):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        stop.record()
+        torch.cuda.synchronize()
+        means.append(start.elapsed_time(stop) / reps)
+    means.sort()
+    return means[REPEATS // 2], means[0], means[-1]
+
+
+def cuda_ms(fn, reps: int) -> float:
+    return cuda_ms_spread(fn, reps)[0]
+
+
+def spread(ms) -> str:
+    return f"{ms[0]:.4f} ms ({ms[1]:.4f}..{ms[2]:.4f} over {REPEATS} repeats)"
+
+
+def kernel_split(fn, reps: int) -> str:
+    """Device microseconds a call of each kernel that ``fn()`` launches, by
+    the profiler's trace of ``reps`` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
     torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    def device_us(e):  # the attribute's name changed between PyTorch versions
+        return getattr(e, "device_time_total", None) or getattr(
+            e, "cuda_time_total", 0)
+
+    rows = [(e.key.split("::")[-1].split("(")[0], device_us(e) / reps)
+            for e in prof.key_averages() if device_us(e) > 0]
+    assert rows, "the profiler recorded no device time"
+    return ", ".join(f"{k} {us:.1f}" for k, us in sorted(rows, key=lambda r: -r[1]))
 
 
 def bound(nbytes: float, nops: float):
@@ -177,31 +223,49 @@ def check_kernels(frames):
     img = ws.stack_frames(gaussian_blur(seg, (0.0, 3.0, 3.0)))
     H, W = img.shape
     npx = H * W
+    # a different update order could only show in the sign of a zero
+    assert not bool(torch.signbit(img).any()), "negative zero in the flood input"
     cand, init = ws.minima_candidates(img)
     got = flood_cuda.cc_diffusion(cand, init)
+    rounds = int(flood_cuda._ROUNDS["diffusion_cc"])
     want, cc_sweeps = flood_cuda.cc_diffusion_plain(cand, init, return_sweeps=True)
     assert torch.equal(got, want), "cc_diffusion disagrees with its plain version"
+    assert torch.equal(got, flood_cuda.cc_diffusion(cand, init)), \
+        "cc_diffusion: two runs differ"
+    # mask (1 B) and init (4 B) read once, the result (4 B) written once; a
+    # compare and a min per pixel and direction. No term counts the sweeps or
+    # rounds of any schedule
+    ms = cuda_ms_spread(lambda: flood_cuda.cc_diffusion(cand, init), 20)
     rows["diffusion_cc"] = dict(
-        err=max_abs_err(got, want),
-        ms=cuda_ms(lambda: flood_cuda.cc_diffusion(cand, init), 10),
-        plain_ms=cuda_ms(lambda: flood_cuda.cc_diffusion_plain(cand, init), 2),
-        bound=bound(12 * npx, 7 * npx * max(cc_sweeps, 1)), library_ms=None)
-    print(f"diffusion_cc {H}x{W}: bit-exact, {cc_sweeps} sweeps, kernel "
-          f"{rows['diffusion_cc']['ms']:.4f} ms, plain "
-          f"{rows['diffusion_cc']['plain_ms']:.4f} ms")
+        err=max_abs_err(got, want), ms=ms[0], ms_min=ms[1], ms_max=ms[2],
+        plain_ms=cuda_ms(lambda: flood_cuda.cc_diffusion_plain(cand, init), 1),
+        bound=bound(9 * npx, 8 * npx), library_ms=None)
+    print(f"diffusion_cc {H}x{W}: bit-exact, two runs equal, 1 launch, {rounds} "
+          f"rounds (plain: {cc_sweeps} sweeps), kernel {spread(ms)}, plain "
+          f"{rows['diffusion_cc']['plain_ms']:.4f} ms, bound "
+          f"{rows['diffusion_cc']['bound'][0]:.4f} ms "
+          f"({rows['diffusion_cc']['bound'][1]})")
 
     seeds = ws.regional_minima_labels(img)
     got = flood_cuda.bf_flood(img, seeds)
+    rounds = int(flood_cuda._ROUNDS["diffusion_bf"])
     want, bf_sweeps = flood_cuda.bf_flood_plain(img, seeds, return_sweeps=True)
     assert torch.equal(got, want), "bf_flood disagrees with its plain version"
+    assert torch.equal(got, flood_cuda.bf_flood(img, seeds)), \
+        "bf_flood: two runs differ"
+    # img, seeds read once, lam written once (4 B each); four mins, a max and
+    # a min per pixel
+    ms = cuda_ms_spread(lambda: flood_cuda.bf_flood(img, seeds), 20)
     rows["diffusion_bf"] = dict(
-        err=max_abs_err(got, want),
-        ms=cuda_ms(lambda: flood_cuda.bf_flood(img, seeds), 10),
-        plain_ms=cuda_ms(lambda: flood_cuda.bf_flood_plain(img, seeds), 2),
-        bound=bound(12 * npx, 6 * npx * max(bf_sweeps, 1)), library_ms=None)
-    print(f"diffusion_bf {H}x{W}: bit-exact, {bf_sweeps} sweeps, kernel "
-          f"{rows['diffusion_bf']['ms']:.4f} ms, plain "
-          f"{rows['diffusion_bf']['plain_ms']:.4f} ms")
+        err=max_abs_err(got, want), ms=ms[0], ms_min=ms[1], ms_max=ms[2],
+        plain_ms=cuda_ms(lambda: flood_cuda.bf_flood_plain(img, seeds), 1),
+        bound=bound(12 * npx, 6 * npx), library_ms=None)
+    print(f"diffusion_bf {H}x{W}: bit-exact, two runs equal, 1 launch, {rounds} "
+          f"rounds (plain: {bf_sweeps} sweeps), kernel {spread(ms)}, plain "
+          f"{rows['diffusion_bf']['plain_ms']:.4f} ms, bound "
+          f"{rows['diffusion_bf']['bound'][0]:.4f} ms "
+          f"({rows['diffusion_bf']['bound'][1]})")
+    check_diffusion_hard_cases(img, seeds)
 
     lam = got
     got = flood_cuda.settle_mask(lam)
@@ -231,6 +295,51 @@ def check_kernels(frames):
     return rows
 
 
+def check_diffusion_hard_cases(img, seeds):
+    """The two diffusions where a tiled schedule is weakest: one plateau
+    spanning the stacked image (a single seed in the far corner; an all-true
+    mask with a random init), and a crop whose edges no tile divides. Bit
+    for bit against the plain versions, two runs equal."""
+    import torch
+
+    from tissue_image_processing_tpu_torch.ops import flood_cuda
+
+    H, W = img.shape
+    gen = torch.Generator(device=img.device).manual_seed(1)
+    flat = torch.full((H, W), 0.25, device=img.device)
+    one_seed = torch.zeros((H, W), dtype=torch.int32, device=img.device)
+    one_seed[-1, -1] = 1
+    crop = (slice(3, 3 + 1001), slice(5, 5 + 931))
+    for name, im, sd in (("plateau", flat, one_seed),
+                         ("ragged", img[crop].contiguous(),
+                          seeds[crop].contiguous())):
+        got = flood_cuda.bf_flood(im, sd)
+        rounds = int(flood_cuda._ROUNDS["diffusion_bf"])
+        want, sweeps = flood_cuda.bf_flood_plain(im, sd, return_sweeps=True)
+        assert torch.equal(got, want), f"bf_flood ({name}) disagrees with plain"
+        assert torch.equal(got, flood_cuda.bf_flood(im, sd)), name
+        ms = cuda_ms(lambda: flood_cuda.bf_flood(im, sd), 3)
+        print(f"diffusion_bf {name} {tuple(im.shape)}: bit-exact, two runs "
+              f"equal, {rounds} rounds (plain: {sweeps} sweeps), {ms:.4f} ms")
+    for name, shape in (("plateau", (H, W)), ("ragged", (1001, 931))):
+        mask = torch.ones(shape, dtype=torch.bool, device=img.device)
+        if name == "ragged":
+            mask = torch.rand(shape, device=img.device, generator=gen) < 0.62
+        n = shape[0] * shape[1]
+        init = torch.randint(0, n, shape, device=img.device, generator=gen,
+                             dtype=torch.int32)
+        got = flood_cuda.cc_diffusion(mask, init)
+        rounds = int(flood_cuda._ROUNDS["diffusion_cc"])
+        # the plain scan: Jacobi sweeps would need one per pixel of the way
+        want = flood_cuda.cc_scan_plain(mask, init)
+        assert torch.equal(got, want), f"cc_diffusion ({name}) disagrees with plain"
+        assert torch.equal(got, flood_cuda.cc_diffusion(mask, init)), name
+        assert torch.equal(got, flood_cuda.cc_scan(mask, init)), name
+        ms = cuda_ms(lambda: flood_cuda.cc_diffusion(mask, init), 3)
+        print(f"diffusion_cc {name} {shape}: bit-exact vs the plain scan and the "
+              f"union-find kernel, two runs equal, {rounds} rounds, {ms:.4f} ms")
+
+
 def synthetic_predictions(movie_z1):
     """(8, 1024, 1024, 2) softmax-like predictions on the card from the
     synthetic movie's membranes, in x-major space: HC probability 0.9 in the
@@ -245,15 +354,16 @@ def synthetic_predictions(movie_z1):
 
 
 def check_cc_scan(preds):
-    """Phase 2 for the segmented scan: bit-exact against its plain version
-    and against the sweep kernel at the U-Net path's shape, with the index
-    init and a poisoned init; its time, iterations and bound; two small
-    winding masks."""
+    """Phase 2 for the union-find component minimum: bit-exact against its
+    plain version and against the relaxation kernel at the U-Net path's
+    shape, with the index init and a poisoned init, two runs equal; its
+    time and bound; then the hard masks at that size and small ones."""
     import torch
 
     from tissue_image_processing_tpu_torch.models.predictor import _boundary
     from tissue_image_processing_tpu_torch.ops import flood_cuda
     from tissue_image_processing_tpu_torch.ops import watershed as ws
+    from tissue_image_processing_tpu_torch.utils.synthetic import coil_mask
 
     boundary, _ = _boundary(preds, 0.1, 5, 7)
     img = ws.stack_frames(boundary.to(torch.float32))
@@ -263,34 +373,62 @@ def check_cc_scan(preds):
     idx = torch.arange(npx, dtype=torch.int32, device=img.device).reshape(H, W)
     gen = torch.Generator(device=img.device).manual_seed(0)
     poison = torch.rand(img.shape, device=img.device, generator=gen) < 0.01
+    poisoned = torch.where(poison, idx - npx, idx)
     err = 0.0
-    for name, init in (("index", idx), ("poisoned",
-                                        torch.where(poison, idx - npx, idx))):
-        got, iters = flood_cuda.cc_scan(cand, init, return_iterations=True)
-        want = flood_cuda.cc_scan_plain(cand, init)
+
+    def exact(name, mask, init):
+        """cc_scan on (mask, init): equal to the plain scan, to the
+        relaxation kernel and to a second run."""
+        got = flood_cuda.cc_scan(mask, init)
+        assert torch.equal(got, flood_cuda.cc_diffusion(mask, init)), \
+            f"cc_scan ({name}) disagrees with the relaxation kernel"
+        rounds = int(flood_cuda._ROUNDS["diffusion_cc"])
+        assert torch.equal(got, flood_cuda.cc_scan(mask, init)), \
+            f"cc_scan ({name}): two runs differ"
+        want, iters = flood_cuda.cc_scan_plain(mask, init, return_iterations=True)
         assert torch.equal(got, want), f"cc_scan ({name}) disagrees with plain"
-        assert torch.equal(got, flood_cuda.cc_diffusion(cand, init)), \
-            f"cc_scan ({name}) disagrees with the sweep kernel"
-        err = max(err, max_abs_err(got, want))
-        print(f"cc_scan {H}x{W} {name} init: bit-exact vs plain and vs the "
-              f"sweep kernel, {iters} iterations")
-    _, iters = flood_cuda.cc_scan(cand, idx, return_iterations=True)
+        print(f"cc_scan {tuple(mask.shape)} {name}: bit-exact vs plain ({iters} "
+              f"scan iterations) and vs the relaxation kernel ({rounds} "
+              f"rounds), two runs equal")
+        return max_abs_err(got, want)
+
+    for name, init in (("index init", idx), ("poisoned init", poisoned),
+                       ("default init", None)):
+        err = max(err, exact(f"boundary maps, {name}", cand, init))
     # mask (1 B) and init (4 B) read once, the result (4 B) written once; the
     # function needs at least one compare and one min per pixel and direction
     # (how many passes a schedule takes to get there is its own affair), so
     # the byte term always sets the bound
+    ms = cuda_ms_spread(lambda: flood_cuda.cc_scan(cand, idx), 20)
     row = dict(
-        err=err, ms=cuda_ms(lambda: flood_cuda.cc_scan(cand, idx), 5),
-        plain_ms=cuda_ms(lambda: flood_cuda.cc_scan_plain(cand, idx), 2),
+        err=err, ms=ms[0], ms_min=ms[1], ms_max=ms[2],
+        plain_ms=cuda_ms(lambda: flood_cuda.cc_scan_plain(cand, idx), 1),
         bound=bound(9 * npx, 8 * npx), library_ms=None)
-    sweeps_ms = cuda_ms(lambda: flood_cuda.cc_diffusion(cand, idx), 1)
+    relax_ms = cuda_ms(lambda: flood_cuda.cc_diffusion(cand, idx), 2)
     print(f"cc_scan {H}x{W}: zero set {float(cand.float().mean()):.3f} of the "
-          f"pixels, {iters} iterations, kernel {row['ms']:.4f} ms, plain "
-          f"{row['plain_ms']:.4f} ms, sweep kernel {sweeps_ms:.4f} ms, bound "
+          f"pixels, 4 launches, no host read, kernel {spread(ms)}, plain "
+          f"{row['plain_ms']:.4f} ms, relaxation kernel {relax_ms:.4f} ms, bound "
           f"{row['bound'][0]:.4f} ms ({row['bound'][1]}), library: none")
 
-    # small hard cases: the open one-pixel rings of the JAX package's scan
-    # test and a one-pixel serpentine (one component, 48 turns)
+    print(f"cc_scan {H}x{W} by pass, us a call: {kernel_split(lambda: flood_cuda.cc_scan(cand, idx), 5)}")
+
+    # the hard masks at the path's size: one thin component winding through
+    # the image, no link at all, one component over every tile
+    yy = torch.arange(H, device=img.device)[:, None]
+    xx = torch.arange(W, device=img.device)[None, :]
+    hard = (("coil, pitch 16", torch.from_numpy(coil_mask(H, W, 16)).cuda()),
+            ("checkerboard", (yy + xx) % 2 == 0),
+            ("all true", torch.ones((H, W), dtype=torch.bool, device=img.device)))
+    for name, mask in hard:
+        for kind, init in (("index", idx), ("poisoned", poisoned)):
+            err = max(err, exact(f"{name}, {kind} init", mask, init))
+        ms = cuda_ms(lambda: flood_cuda.cc_scan(mask, idx), 5)
+        print(f"cc_scan {H}x{W} {name}: kernel {ms:.4f} ms")
+    row["err"] = err
+
+    # shapes no tile divides (32 for the union-find, 64 for the relaxation),
+    # the open one-pixel rings of the JAX package's scan test and a
+    # one-pixel serpentine (one component, 48 turns)
     rings = np.zeros((128, 128), bool)
     lo, hi = 0, 127
     while lo < hi - 8:
@@ -304,15 +442,17 @@ def check_cc_scan(preds):
     serpentine[1::4, -1] = True
     serpentine[3::4, 0] = True
     rng = np.random.default_rng(5)
-    for name, mask in (("rings", rings), ("serpentine", serpentine)):
+    small = [("rings", rings), ("serpentine", serpentine),
+             ("coil, pitch 2", coil_mask(1001, 931, 2))]
+    small += [(f"percolation {h}x{w}", rng.random((h, w)) < 0.62)
+              for h, w in ((31, 65), (33, 63), (63, 33), (65, 31), (1, 1),
+                           (1, 700), (700, 1), (1001, 931))]
+    for name, mask in small:
         m = torch.from_numpy(mask).cuda()
-        init = torch.from_numpy(rng.integers(0, mask.size, mask.shape)
-                                .astype(np.int32)).cuda()
-        got, iters = flood_cuda.cc_scan(m, init, return_iterations=True)
-        assert torch.equal(got, flood_cuda.cc_scan_plain(m, init)), name
-        assert torch.equal(got, flood_cuda.cc_diffusion(m, init)), name
-        print(f"cc_scan {name} {mask.shape}: bit-exact vs plain and vs the "
-              f"sweep kernel, {iters} iterations")
+        n = mask.size
+        init = rng.integers(0, n, mask.shape).astype(np.int32)
+        init = np.where(rng.random(mask.shape) < 0.1, init - n, init)
+        exact(name, m, torch.from_numpy(init.astype(np.int32)).cuda())
     return {"cc_scan": row}
 
 
@@ -546,6 +686,11 @@ def check_pipeline(card: str, movie):
     missing = [k for k in expected if launches[k] == 0]
     assert not missing, f"kernels not launched on the main path: {missing}"
     assert launches["cc_scan"] == 0, launches
+    # one launch a diffusion call: the BF flood once and the CC twice (the
+    # minima search) for each stacked flood of two frames
+    floods = -(-T // kw["batch"])
+    assert launches["diffusion_bf"] == floods, launches
+    assert launches["diffusion_cc"] == 2 * floods, launches
     if Z > 1:
         assert all(launches[k] == T for k in PROJECTION_KERNELS), launches
     else:
@@ -655,7 +800,8 @@ def check_unet_pipeline(card: str, movie):
     assert launches["diffusion_bf"] == 0, launches  # binary route: no BF flood
     assert launches["diffusion_cc"] == 0 and launches["blur3d"] == T, launches
     assert all(launches[k] == T for k in PROJECTION_KERNELS), launches
-    assert launches["cc_scan"] >= 2 and launches["settle_mask"] == 1, launches
+    # two component minima of four launches each, in one stacked flood
+    assert launches["cc_scan"] == 8 and launches["settle_mask"] == 1, launches
 
     labels = out["labels"]
     assert tuple(labels.shape) == (T, 1024, 1024), labels.shape
@@ -819,7 +965,8 @@ def main() -> int:
             "launches_unet": unet_launches[name],
             "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
-            "library_ms": r["library_ms"], **at_unet})
+            "library_ms": r["library_ms"], **at_unet,
+            **{k: r[k] for k in ("ms_min", "ms_max") if k in r}})
     print(json.dumps({"kernels": table}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

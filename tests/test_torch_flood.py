@@ -22,6 +22,7 @@ from scipy import ndimage as ndi
 from conftest import make_cell_image
 from tissue_image_processing_tpu_torch.ops import flood_cuda
 from tissue_image_processing_tpu_torch.ops import watershed as tws
+from tissue_image_processing_tpu_torch.utils.synthetic import coil_mask
 
 jws = importlib.import_module("tissue_image_processing_tpu.ops.watershed")
 jfp = importlib.import_module("tissue_image_processing_tpu.ops.flood_pallas")
@@ -172,34 +173,84 @@ def _scan_masks():
     serpentine[::2] = True
     serpentine[1::4, -1] = True
     serpentine[3::4, 0] = True
-    return {"percolation": perc, "sea": sea, "spiral": spiral,
-            "serpentine": serpentine}
+    masks = {"percolation": perc, "sea": sea, "spiral": spiral,
+             "serpentine": serpentine}
+    masks.update(_hard_masks())
+    return masks
+
+
+def test_coil_mask_is_one_thin_component():
+    for h, w, pitch in ((48, 64, 4), (33, 63, 2), (100, 90, 7)):
+        m = coil_mask(h, w, pitch)
+        assert ndi.label(m)[1] == 1
+        assert not (m[:-1, :-1] & m[1:, :-1] & m[:-1, 1:] & m[1:, 1:]).any()
+        assert m.sum() > h * w / (pitch + 1)
+
+
+def _hard_masks():
+    """Masks that are hard for a tiled or iterated component search: a
+    one-pixel coil winding to the centre (one component, as long as a
+    quarter of the image), a checkerboard (every pixel alone, no link), an
+    all-true image (one component over every tile), and percolation masks
+    at shapes one below, at and one above the kernels' 32- and 64-pixel
+    tiles."""
+    coil = coil_mask(48, 64, 4)
+    yy, xx = np.mgrid[0:64, 0:64]
+    rng = np.random.default_rng(13)
+    masks = {"coil": coil, "checker": (yy + xx) % 2 == 0,
+             "all_true": np.ones((64, 96), bool)}
+    for h, w in ((31, 65), (32, 64), (33, 63), (63, 33), (64, 32), (65, 31)):
+        masks[f"ragged_{h}x{w}"] = rng.random((h, w)) < 0.62
+    return masks
 
 
 SCAN_MASKS = _scan_masks()
 
 
-def _scan_init(shape, poisoned=False):
+def _scan_init(shape, poisoned=False, mask=None):
     """An init below H*W, as the contract of both forms wants; ``poisoned``
-    pushes a tenth of the pixels to idx - n as the minima search does."""
+    pushes a tenth of the pixels to idx - n as the minima search does, and
+    ``poisoned="rank"`` is the second diffusion of the minima search: the
+    raster-order rank on the first pixel of each component of ``mask``, H*W
+    on every other pixel."""
     rng = np.random.default_rng(7)
     n = shape[0] * shape[1]
+    if poisoned == "rank":
+        lab, _ = ndi.label(mask)
+        first = np.zeros(n, bool)
+        first[np.unique(lab.ravel(), return_index=True)[1]] = True
+        first = first.reshape(shape) & mask
+        rank = np.cumsum(first.ravel()).reshape(shape)
+        return np.where(first, rank, n).astype(np.int32)
     init = rng.integers(0, n, shape).astype(np.int32)
     if poisoned:
         init = np.where(rng.random(shape) < 0.1, init - n, init).astype(np.int32)
     return init
 
 
+INIT_KINDS = pytest.mark.parametrize("poisoned", [False, True, "rank"],
+                                     ids=["index", "poisoned", "rank"])
+
+
+def _component_minimum(mask, init):
+    """The function itself, by scipy: min of init over each 4-component."""
+    lab, k = ndi.label(mask)
+    mins = ndi.minimum(init, lab, np.arange(1, k + 1)) if k else np.zeros(0)
+    return np.where(mask, np.concatenate([[-1], mins])[lab], -1).astype(np.int32)
+
+
 @pytest.mark.parametrize("name", sorted(SCAN_MASKS))
-@pytest.mark.parametrize("poisoned", [False, True], ids=["index", "poisoned"])
+@INIT_KINDS
 def test_cc_scan_plain_matches_sweeps(name, poisoned):
     mask = torch.from_numpy(SCAN_MASKS[name])
-    init = torch.from_numpy(_scan_init(mask.shape, poisoned))
+    init = torch.from_numpy(_scan_init(mask.shape, poisoned, SCAN_MASKS[name]))
     want = flood_cuda.cc_diffusion_plain(mask, init)
     got, iterations = flood_cuda.cc_scan_plain(mask, init,
                                                return_iterations=True)
     assert torch.equal(got, want)
     assert torch.equal(flood_cuda.cc_diffusion(mask, init, scan=True), want)
+    np.testing.assert_array_equal(
+        got.numpy(), _component_minimum(SCAN_MASKS[name], init.numpy()))
     if name == "serpentine":  # 48 turns: a scan cannot do it in a few passes
         assert iterations > 8
 
@@ -220,6 +271,68 @@ def test_cc_scan_plain_matches_pallas(interpret_pallas, name):
     got = flood_cuda.cc_scan_plain(torch.from_numpy(mask),
                                    torch.from_numpy(init)).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+HARD_MASKS = sorted(_hard_masks())
+
+
+def _pad_rows(a, fill):
+    """Pad the height to a multiple of 64 rows, the Pallas kernels' row
+    block (the JAX package's callers pad the same way: +inf rows / rows
+    outside the mask never reach a pixel of the image)."""
+    return np.pad(a, ((0, -a.shape[0] % 64), (0, 0)), constant_values=fill)
+
+
+@pytest.mark.parametrize("name", HARD_MASKS)
+def test_cc_plain_versions_match_pallas_on_hard_masks(interpret_pallas, name):
+    """Both plain versions against both Pallas forms (sweeps and scan) on the
+    hard masks, with the poisoned init."""
+    mask = SCAN_MASKS[name]
+    init = _scan_init(mask.shape, True)
+    got = flood_cuda.cc_scan_plain(torch.from_numpy(mask),
+                                   torch.from_numpy(init)).numpy()
+    np.testing.assert_array_equal(
+        got, flood_cuda.cc_diffusion_plain(torch.from_numpy(mask),
+                                           torch.from_numpy(init)).numpy())
+    for scan in (False, True):
+        want = np.asarray(jfp.cc_diffusion_pallas.__wrapped__(
+            jnp.asarray(_pad_rows(mask, False)),
+            init=jnp.asarray(_pad_rows(init, 0)), scan=scan))
+        np.testing.assert_array_equal(got, want[:mask.shape[0]])
+
+
+def _bf_cases():
+    """(img, seeds) for the flood levels: one plateau spanning the image
+    with a single seed in a corner (lam is the plateau's level everywhere,
+    after as many sweeps as the image is wide and tall), the same with a
+    ridge to climb, and cell images at shapes around the 64-pixel tile."""
+    flat = np.full((64, 96), 0.25, np.float32)
+    one_seed = np.zeros(flat.shape, np.int32)
+    one_seed[-1, -1] = 1
+    ridge = flat.copy()
+    ridge[:, 40:43] = 0.75
+    ridge[30:34, 40:43] = 0.5
+    cases = {"plateau": (flat, one_seed), "plateau_ridge": (ridge, one_seed)}
+    for h, w in ((63, 65), (65, 63)):
+        img = _blurred(h, w, n_seeds=6, seed=h)
+        cases[f"ragged_{h}x{w}"] = (
+            img, tws.regional_minima_labels(torch.from_numpy(img)).numpy())
+    return cases
+
+
+BF_CASES = _bf_cases()
+
+
+@pytest.mark.parametrize("name", sorted(BF_CASES))
+def test_bf_flood_plain_matches_pallas_on_hard_cases(interpret_pallas, name):
+    img, seeds = BF_CASES[name]
+    want = np.asarray(jfp.bf_flood_pallas.__wrapped__(
+        jnp.asarray(_pad_rows(img, np.inf)), jnp.asarray(_pad_rows(seeds, 0))))
+    got = flood_cuda.bf_flood_plain(torch.from_numpy(img),
+                                    torch.from_numpy(seeds)).numpy()
+    np.testing.assert_array_equal(got, want[:img.shape[0]])
+    if name == "plateau":
+        assert (got == np.float32(0.25)).all()
 
 
 def test_cc_connectivity_matches_jax_packing():
@@ -349,14 +462,32 @@ def test_flood_kernels_match_plain(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(BF_CASES))
+def test_bf_flood_kernel_matches_plain_on_hard_cases(cuda_device, name):
+    img, seeds = (torch.from_numpy(a).to(cuda_device) for a in BF_CASES[name])
+    got = flood_cuda.bf_flood(img, seeds)
+    assert torch.equal(got, flood_cuda.bf_flood_plain(img, seeds))
+    assert torch.equal(got, flood_cuda.bf_flood(img, seeds))  # two runs equal
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(SCAN_MASKS))
 def test_cc_scan_kernel_matches_plain(cuda_device, name):
+    """The union-find kernel and the relaxation kernel against the plain
+    scan, each other and a second run, for every init kind and the default
+    (null) init."""
     mask = torch.from_numpy(SCAN_MASKS[name]).to(cuda_device)
-    for poisoned in (False, True):
-        init = torch.from_numpy(_scan_init(mask.shape, poisoned)).to(cuda_device)
+    for poisoned in (False, True, "rank"):
+        init = torch.from_numpy(_scan_init(mask.shape, poisoned,
+                                           SCAN_MASKS[name])).to(cuda_device)
         got = flood_cuda.cc_scan(mask, init)
         assert torch.equal(got, flood_cuda.cc_scan_plain(mask, init))
         assert torch.equal(got, flood_cuda.cc_diffusion(mask, init))
+        assert torch.equal(got, flood_cuda.cc_scan(mask, init))
+        assert torch.equal(got, flood_cuda.cc_diffusion(mask, init))
+    want = flood_cuda.cc_scan_plain(mask)
+    assert torch.equal(flood_cuda.cc_scan(mask), want)
+    assert torch.equal(flood_cuda.cc_diffusion(mask), want)
 
 
 @pytest.mark.cuda

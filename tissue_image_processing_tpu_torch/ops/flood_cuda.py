@@ -5,20 +5,33 @@ Port of the flood kernels of ``tissue_image_processing_tpu/ops/flood_pallas.py``
 - :func:`bf_flood` — phase-1 flood levels, lam = minimax path elevation from
   any seed (Bellman-Ford on the (min, max) semiring; ``bf_flood_pallas``);
 - :func:`cc_diffusion` — 4-connected component minimum of an initial value
-  (``cc_diffusion_pallas``): by Jacobi sweeps, or with ``scan=True`` by
-  :func:`cc_scan`, iterated segmented row / column min-scans
-  (``_cc_scan_kernel``; ``csrc/cc_scan.cu``), the route for image-scale
+  (``cc_diffusion_pallas``): by relaxation, or with ``scan=True`` by
+  :func:`cc_scan` (``_cc_scan_kernel``), the route for image-scale
   components such as the background sea of a binary boundary map;
 - :func:`settle_mask` — the lam-comparison bitmask (``_settle_mask``);
 - :func:`settle` — the phase-2 Meyer settle with arrival stamps
   (``settle_pallas_loop``), in the unpacked label domain, so it needs neither
   the packed form's 21-bit label guard nor its 1022-sweep stamp cap.
 
-All are exact: the CUDA kernels (``csrc/flood.cu``) and the plain versions
-compute the same Jacobi sweeps and agree bit for bit. The diffusion fixpoints
-do not depend on the schedule, so the scan route returns the very array the
-sweep route returns; the settle's stamps do depend on it, and both versions
-keep exact Jacobi sweeps (stamp = sweep index, seeds 0).
+On the card (``csrc/flood.cu``, ``csrc/cc_scan.cu``):
+
+- the two diffusions are one kernel with two combines, a tile-resident
+  relaxation: one persistent cooperative launch a call, in which blocks
+  relax 64 x 64 tiles to their own fixpoint in shared memory and rounds
+  repeat over the tiles whose halo changed until none did. The host reads
+  nothing back;
+- :func:`cc_scan` is label equivalence (union-find): tiles resolved in
+  shared memory, seams united with lock-free ``atomicMin`` unions, the
+  minima folded once per tile and component. Four launches whatever the
+  mask, no host read;
+- the settle runs exact Jacobi sweeps in batches of ``SWEEP_BATCH`` with one
+  host flag read a batch.
+
+All are exact. The diffusion fixpoints are minima (or min-max selections)
+over sets and do not depend on the order of the updates, so the kernels, the
+plain versions (Jacobi sweeps; row / column scans) and each other agree bit
+for bit, in every run. The settle's stamps do depend on the schedule, and
+both its versions keep exact Jacobi sweeps (stamp = sweep index, seeds 0).
 
 CPU tensors run the plain versions; CUDA tensors launch the kernels or raise.
 """
@@ -36,32 +49,31 @@ from tissue_image_processing_tpu_torch.ops.morphology import shift2d
 __all__ = ["bf_flood", "bf_flood_plain", "cc_diffusion", "cc_diffusion_plain",
            "cc_scan", "cc_scan_plain", "cc_connectivity",
            "settle_mask", "settle_mask_plain", "settle", "settle_plain",
-           "BIG_T", "SWEEP_BATCH", "SCAN_MAX_ITERS"]
+           "BIG_T", "SWEEP_BATCH"]
 
 # Arrival stamp of pixels that never settle. The line pass only compares
 # stamps of settled, labelled pixels, so the value is never read; it is the
 # XLA path's ``iinfo(int32).max // 2``.
 BIG_T = (1 << 30) - 1
-# Sweeps per batch: only the last sweep of a batch reports "changed", and the
-# host reads that flag once per batch (the TPU kernels' _SWEEP_BATCH).
+# Settle sweeps per batch: only the last sweep of a batch reports "changed",
+# and the host reads that flag once per batch (the TPU kernels' _SWEEP_BATCH).
 SWEEP_BATCH = 8
-# Scan iterations after which :func:`cc_scan` raises instead of returning an
-# unconverged array. One iteration carries a value along a whole straight
-# run in each of the four directions, so the count grows with the turns of
-# the most winding component: a few on boundary maps, H / 2 on a one-pixel
-# serpentine.
-SCAN_MAX_ITERS = 1 << 16
 _SCAN_BIG = (1 << 31) - 1
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "bf_sweeps": (_P, _P, _P, _P, _I, _I, _I, _P),
-    "cc_sweeps": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "diffusion_flag_ints": (_I, _I),
+    "bf_diffusion": (_P, _P, _P, _P, _I, _I, _P),
+    "cc_diffusion": (_P, _P, _P, _P, _I, _I, _P),
     "settle_mask": (_P, _P, _I, _I, _P),
     "settle_sweeps": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
-_SCAN_SIGNATURES = {"cc_scan_iteration": (_P, _P, _P, _I, _I, _P)}
+_SCAN_SIGNATURES = {"cc_scan_min": (_P, _P, _P, _P, _I, _I, _P)}
+_SCAN_LAUNCHES = 4  # tiles, seams, fold, result
 _INF = float("inf")
+# Rounds of the last diffusion call on the card, by kernel name: one-element
+# device tensors (reading one synchronises; the wrappers never do).
+_ROUNDS = {}
 
 
 def _lib():
@@ -108,6 +120,40 @@ def _run_batches(launch, name: str) -> None:
             return
 
 
+def _require_mask(mask: torch.Tensor, what: str) -> None:
+    if mask.dim() != 2 or mask.dtype != torch.bool:
+        raise ValueError(f"{what}: mask must be a 2-D bool tensor")
+    _require_label_range(mask, what)
+
+
+def _require_label_range(mask: torch.Tensor, what: str) -> None:
+    H, W = mask.shape
+    if 2 * H * W >= 2 ** 31:  # poisoned inits reach idx - n; all must fit int32
+        raise ValueError(f"{what}: {H}x{W} image too large for int32 labels")
+
+
+def _mask_and_init(mask: torch.Tensor, init, what: str):
+    """The mask as one byte a pixel and ``init`` as int32 (or a null
+    pointer for the flat index), both contiguous, for the kernels."""
+    m = mask.contiguous().view(torch.uint8)
+    _device.require_cuda_tensor(m, torch.uint8, 2, what)
+    if init is None:
+        return m, None, ctypes.c_void_p(None)
+    init = init.to(torch.int32).contiguous()
+    _device.require_cuda_tensor(init, torch.int32, 2, what)
+    return m, init, _device.ptr(init)
+
+
+def _diffusion_flags(lib, name: str, H: int, W: int,
+                     device: torch.device) -> torch.Tensor:
+    """Scratch for one diffusion launch (the tiles' dirty flags); its last
+    element receives the number of rounds."""
+    flags = torch.empty((lib.diffusion_flag_ints(H, W),), dtype=torch.int32,
+                        device=device)
+    _ROUNDS[name] = flags[-1:]
+    return flags
+
+
 # --- phase 1: Bellman-Ford flood levels ------------------------------------
 
 def bf_flood_plain(img: torch.Tensor, seeds: torch.Tensor,
@@ -127,31 +173,27 @@ def bf_flood(img: torch.Tensor, seeds: torch.Tensor) -> torch.Tensor:
     if img.device.type == "cpu":
         return bf_flood_plain(img, seeds)
     img = img.to(torch.float32).contiguous()
+    seeds = seeds.to(torch.int32).contiguous()
     _device.require_cuda_tensor(img, torch.float32, 2, "bf_flood")
+    _device.require_cuda_tensor(seeds, torch.int32, 2, "bf_flood seeds")
     lib = _lib()
     H, W = img.shape
-    a = torch.where(seeds > 0, img, torch.full_like(img, _INF)).contiguous()
-    b = torch.empty_like(a)
-    flag = torch.empty((1,), dtype=torch.int32, device=img.device)
-
-    def launch():
-        rc = lib.bf_sweeps(_device.ptr(img), _device.ptr(a), _device.ptr(b),
-                           _device.ptr(flag), H, W, SWEEP_BATCH,
-                           _device.stream_ptr())
-        _device.check_cuda(lib, rc, "bf_flood")
-        return flag
-
-    _run_batches(launch, "diffusion_bf")
-    return a
+    lam = torch.empty_like(img)
+    flags = _diffusion_flags(lib, "diffusion_bf", H, W, img.device)
+    rc = lib.bf_diffusion(_device.ptr(img), _device.ptr(seeds),
+                          _device.ptr(lam), _device.ptr(flags), H, W,
+                          _device.stream_ptr())
+    _device.check_cuda(lib, rc, "bf_flood")
+    _device.LAUNCHES["diffusion_bf"] += 1
+    return lam
 
 
 # --- connected-component minimum --------------------------------------------
 
 def _cc_init(mask: torch.Tensor, init) -> Tuple[torch.Tensor, int]:
+    _require_label_range(mask, "cc_diffusion")
     H, W = mask.shape
     n = H * W
-    if 2 * n >= 2 ** 31:  # poisoned inits reach idx - n; all must fit int32
-        raise ValueError(f"cc_diffusion: {H}x{W} image too large for int32 labels")
     if init is None:
         init = torch.arange(n, dtype=torch.int32,
                             device=mask.device).reshape(H, W)
@@ -178,7 +220,7 @@ def cc_diffusion(mask: torch.Tensor, init: torch.Tensor | None = None,
     gets the MIN of its pixels' ``init`` values (default: the flat pixel
     index, i.e. the component's first raster pixel); -1 outside the mask.
     ``init`` may hold negative values to poison whole components, and must
-    stay below H*W. ``scan`` takes the segmented-scan route
+    stay below H*W. ``scan`` takes the route for image-scale components
     (:func:`cc_scan`), which returns the same array."""
     if scan:
         return cc_scan(mask, init)
@@ -186,29 +228,20 @@ def cc_diffusion(mask: torch.Tensor, init: torch.Tensor | None = None,
         _require_like(mask, init, "cc_diffusion init")
     if mask.device.type == "cpu":
         return cc_diffusion_plain(mask, init)
-    if mask.dim() != 2 or mask.dtype != torch.bool:
-        raise ValueError("cc_diffusion: mask must be a 2-D bool tensor")
+    _require_mask(mask, "cc_diffusion")
+    m, init, init_ptr = _mask_and_init(mask, init, "cc_diffusion")
     lib = _lib()
     H, W = mask.shape
-    a, n = _cc_init(mask, init)
-    a = a.contiguous()
-    m = mask.to(torch.int32).contiguous()
-    _device.require_cuda_tensor(m, torch.int32, 2, "cc_diffusion")
-    b = torch.empty_like(a)
-    flag = torch.empty((1,), dtype=torch.int32, device=mask.device)
-
-    def launch():
-        rc = lib.cc_sweeps(_device.ptr(m), _device.ptr(a), _device.ptr(b),
-                           _device.ptr(flag), H, W, n, SWEEP_BATCH,
-                           _device.stream_ptr())
-        _device.check_cuda(lib, rc, "cc_diffusion")
-        return flag
-
-    _run_batches(launch, "diffusion_cc")
-    return torch.where(mask, a, -1)
+    lbl = torch.empty((H, W), dtype=torch.int32, device=mask.device)
+    flags = _diffusion_flags(lib, "diffusion_cc", H, W, mask.device)
+    rc = lib.cc_diffusion(_device.ptr(m), init_ptr, _device.ptr(lbl),
+                          _device.ptr(flags), H, W, _device.stream_ptr())
+    _device.check_cuda(lib, rc, "cc_diffusion")
+    _device.LAUNCHES["diffusion_cc"] += 1
+    return lbl
 
 
-# --- connected-component minimum by segmented scans ---------------------------
+# --- connected-component minimum: the scan / union-find route -----------------
 
 def cc_connectivity(mask: torch.Tensor) -> torch.Tensor:
     """The scan's link map, uint8: bit 0 = this pixel and its left neighbour
@@ -264,42 +297,29 @@ def cc_scan_plain(mask: torch.Tensor, init: torch.Tensor | None = None,
     return (out, iterations) if return_iterations else out
 
 
-def cc_scan(mask: torch.Tensor, init: torch.Tensor | None = None,
-            return_iterations: bool = False):
-    """:func:`cc_diffusion` by iterated segmented row / column min-scans: one
-    iteration carries a value along every straight run of the mask, so
-    image-spanning components converge in a few iterations where the sweeps
-    need one per pixel of diameter. Iterates to the fixpoint (the last
-    iteration changes nothing) and raises past ``SCAN_MAX_ITERS``."""
+def cc_scan(mask: torch.Tensor, init: torch.Tensor | None = None
+            ) -> torch.Tensor:
+    """:func:`cc_diffusion` for components of any extent and winding. On the
+    card: label equivalence, a fixed number of launches whatever the mask
+    (tiles resolved in shared memory, seams united by lock-free unions, one
+    ``atomicMin`` per tile and component) and no host read. On the CPU
+    :func:`cc_scan_plain`, iterated row / column min-scans. Both return the
+    array :func:`cc_diffusion` returns."""
     if init is not None:
         _require_like(mask, init, "cc_scan init")
-    if mask.dim() != 2 or mask.dtype != torch.bool:
-        raise ValueError("cc_scan: mask must be a 2-D bool tensor")
+    _require_mask(mask, "cc_scan")
     if mask.device.type == "cpu":
-        return cc_scan_plain(mask, init, return_iterations)
+        return cc_scan_plain(mask, init)
+    m, init, init_ptr = _mask_and_init(mask, init, "cc_scan")
     lib = _scan_lib()
     H, W = mask.shape
-    lbl, _ = _cc_init(mask, init)
-    lbl = lbl.contiguous()
-    conn = cc_connectivity(mask).contiguous()
-    _device.require_cuda_tensor(lbl, torch.int32, 2, "cc_scan")
-    _device.require_cuda_tensor(conn, torch.uint8, 2, "cc_scan")
-    flag = torch.empty((1,), dtype=torch.int32, device=mask.device)
-    iterations = 0
-    while True:
-        if iterations >= SCAN_MAX_ITERS:
-            raise RuntimeError(
-                f"cc_scan: no fixpoint after {SCAN_MAX_ITERS} iterations")
-        rc = lib.cc_scan_iteration(_device.ptr(conn), _device.ptr(lbl),
-                                   _device.ptr(flag), H, W,
-                                   _device.stream_ptr())
-        _device.check_cuda(lib, rc, "cc_scan")
-        _device.LAUNCHES["cc_scan"] += 1
-        iterations += 1
-        if int(flag.item()) == 0:
-            break
-    out = torch.where(mask, lbl, -1)
-    return (out, iterations) if return_iterations else out
+    out = torch.empty((H, W), dtype=torch.int32, device=mask.device)
+    parent = torch.empty_like(out)
+    rc = lib.cc_scan_min(_device.ptr(m), init_ptr, _device.ptr(parent),
+                         _device.ptr(out), H, W, _device.stream_ptr())
+    _device.check_cuda(lib, rc, "cc_scan")
+    _device.LAUNCHES["cc_scan"] += _SCAN_LAUNCHES
+    return out
 
 
 # --- phase 2: the settle ------------------------------------------------------

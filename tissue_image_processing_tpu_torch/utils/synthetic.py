@@ -1,9 +1,11 @@
-"""Synthetic movies for tests and the on-card smoke run.
+"""Synthetic movies and masks for tests and the on-card smoke run.
 
 ``make_movie`` is the recipe of the repository's frames/s benchmark
 (``bench.py:make_movie``): membrane ridges between drifting Voronoi seeds
 (~40 px cells), lit at a smooth z-surface, with Gaussian noise, made from a
-numpy seed. A Z == 1 movie is a pre-projected one.
+numpy seed. A Z == 1 movie is a pre-projected one. ``coil_mask`` is the hard
+case of a connected-component search: one thin component that winds through
+the whole image.
 """
 
 from __future__ import annotations
@@ -12,7 +14,7 @@ from typing import Optional
 
 import numpy as np
 
-__all__ = ["make_movie"]
+__all__ = ["make_movie", "coil_mask"]
 
 
 def make_movie(T: int, Z: int, H: int, W: int, n_cells: Optional[int] = None,
@@ -39,3 +41,20 @@ def make_movie(T: int, Z: int, H: int, W: int, n_cells: Optional[int] = None,
         frames[t, 1] = (1 - ridge)[None] * zprofile * 20000 + rng.normal(
             0, 200, (Z, H, W))
     return np.clip(frames, 0, 65535)
+
+
+def coil_mask(H: int, W: int, pitch: int) -> np.ndarray:
+    """(H, W) bool: a one-pixel square spiral from the top-left corner to the
+    centre, neighbouring turns ``pitch`` (>= 2) pixels apart — a single
+    4-connected component about H * W / pitch pixels long."""
+    m = np.zeros((H, W), bool)
+    r0, c0, r1, c1, start = 0, 0, H - 1, W - 1, 0
+    while r0 <= r1 and start <= c1:
+        m[r0, start:c1 + 1] = True
+        m[r0:r1 + 1, c1] = True
+        if r1 - r0 < pitch or c1 - c0 < pitch:
+            break
+        m[r1, c0:c1 + 1] = True
+        m[r0 + pitch:r1 + 1, c0] = True
+        start, r0, c0, r1, c1 = c0, r0 + pitch, c0 + pitch, r1 - pitch, c1 - pitch
+    return m
