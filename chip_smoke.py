@@ -23,7 +23,14 @@ Phases (any failure exits non-zero; no phase catches and continues):
    masks; the two diffusions also on an image-wide plateau and a ragged
    shape; every run of the redesigned kernels twice, the results equal;
    the settle and its mask once more on that stacked U-Net input (lam ==
-   img, ties everywhere). Blur to rtol 2e-6 / atol 1e-4; the diffusions,
+   img, ties everywhere), no host synchronisation inside a settle call, and
+   the settle on the inputs where a tiled schedule is weakest (one corner
+   seed on a flat image of every tile, serpentine corridors, seeds on tile
+   borders, lines along a tile seam and through a tile corner, +inf voids,
+   negative seeds, shapes no tile divides and below one tile); the project
+   pass also with ``atoh_shift``, with the airyscan offset, on a ragged
+   stack and on a z-map with a full-range step (every plane admitted).
+   Blur to rtol 2e-6 / atol 1e-4; the diffusions,
    the component minimum, the settle mask, the settle (labels AND arrival
    stamps) and both projection passes bit for bit; times are the median of
    five repeats of a CUDA-event bracket, the redesigned kernels' with their
@@ -41,9 +48,9 @@ Phases (any failure exits non-zero; no phase catches and continues):
    shifts, head bias calibrated so about half the pixels pass the HC
    threshold), each with the launch counters zeroed just before and read
    just after: every kernel of the path launched (the two projection
-   kernels once a frame; one launch a diffusion call, four a component
-   minimum; on the U-Net branch the component minimum, the settle and its
-   mask, and NOT the Bellman-Ford flood), cells per frame and id
+   kernels once a frame; one launch a diffusion call and a settle call, four
+   a component minimum; on the U-Net branch the component minimum, the
+   settle and its mask, and NOT the Bellman-Ford flood), cells per frame and id
    persistence as expected, ``movie_pipeline_chunked`` (3-frame chunks)
    identical to the unchunked run; print frames/s and the pipeline's own stage seconds;
 5. compare the card with the CPU path of the port on small movies: the
@@ -277,22 +284,90 @@ def check_kernels(frames):
         plain_ms=cuda_ms(lambda: flood_cuda.settle_mask_plain(lam), 5),
         bound=bound(8 * npx, 8 * npx), library_ms=None)
 
-    got_l, got_t = flood_cuda.settle(lam, seeds)
-    want_l, want_t, st_sweeps = flood_cuda.settle_plain(lam, seeds,
-                                                        return_sweeps=True)
-    assert torch.equal(got_l, want_l), "settle labels disagree with plain"
-    assert torch.equal(got_t, want_t), "settle stamps disagree with plain"
-    # inputs lam + seeds read once, lbl + t written once; ~40 int ops per
-    # pixel and sweep
-    rows["settle"] = dict(
-        err=max(max_abs_err(got_l, want_l), max_abs_err(got_t, want_t)),
-        ms=cuda_ms(lambda: flood_cuda.settle(lam, seeds), 10),
-        plain_ms=cuda_ms(lambda: flood_cuda.settle_plain(lam, seeds), 2),
-        bound=bound(16 * npx, 40 * npx * st_sweeps), library_ms=None)
-    print(f"settle {H}x{W}: lbl and t bit-exact, {st_sweeps} sweeps, kernel "
-          f"{rows['settle']['ms']:.4f} ms, plain {rows['settle']['plain_ms']:.4f} ms"
-          f"; settle_mask kernel {rows['settle_mask']['ms']:.4f} ms")
+    rows["settle"] = settle_row(lam, seeds, f"settle {H}x{W}", reps=10)
+    print(f"settle_mask {H}x{W}: bit-exact, kernel "
+          f"{rows['settle_mask']['ms']:.4f} ms")
+    check_settle_hard_cases(lam.device)
     return rows
+
+
+def settle_row(lam, seeds, name: str, reps: int):
+    """The settle on (lam, seeds): labels AND arrival stamps bit for bit
+    against the plain version, two runs equal, the sweep count the kernel
+    left on the card equal to the plain version's, no host synchronisation
+    inside the call; then its time, spread and bound."""
+    import torch
+
+    from tissue_image_processing_tpu_torch.ops import flood_cuda
+
+    npx = lam.numel()
+    got_l, got_t = flood_cuda.settle(lam, seeds)
+    rounds = int(flood_cuda._ROUNDS["settle"])
+    sweeps = int(flood_cuda._SWEEPS["settle"])
+    want_l, want_t, plain_sweeps = flood_cuda.settle_plain(lam, seeds,
+                                                           return_sweeps=True)
+    assert torch.equal(got_l, want_l), f"{name}: labels disagree with plain"
+    assert torch.equal(got_t, want_t), f"{name}: stamps disagree with plain"
+    assert sweeps == plain_sweeps, (name, sweeps, plain_sweeps)
+    # a call that read anything back would raise here
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again_l, again_t = flood_cuda.settle(lam, seeds)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(again_l, got_l) and torch.equal(again_t, got_t), \
+        f"{name}: two runs differ"
+    # the comparison's inputs lam + seeds read once, lbl + t written once
+    # (16 B/px), ~40 integer operations a pixel. No term counts the sweeps of
+    # any schedule; the old rule (40 operations a pixel and plain sweep) is
+    # printed beside it
+    ms = cuda_ms_spread(lambda: flood_cuda.settle(lam, seeds), reps)
+    row = dict(
+        err=max(max_abs_err(got_l, want_l), max_abs_err(got_t, want_t)),
+        ms=ms[0], ms_min=ms[1], ms_max=ms[2],
+        plain_ms=cuda_ms(lambda: flood_cuda.settle_plain(lam, seeds), 2),
+        bound=bound(16 * npx, 40 * npx), library_ms=None)
+    old_rule = bound(16 * npx, 40 * npx * plain_sweeps)
+    print(f"{name}: lbl and t bit-exact, two runs equal, 1 launch, no host "
+          f"synchronisation, {rounds} rounds, {sweeps} sweeps (plain: "
+          f"{plain_sweeps}), kernel {spread(ms)}, plain {row['plain_ms']:.4f} ms,"
+          f" bound {row['bound'][0]:.4f} ms ({row['bound'][1]}; old rule "
+          f"{old_rule[0]:.4f} ms, {old_rule[1]} x sweeps)")
+    return row
+
+
+def check_settle_hard_cases(device):
+    """The settle where a tiled schedule is weakest (``settle_cases`` at the
+    kernel's 64-pixel tile, with ragged shapes), and one corner seed on a
+    flat image over every tile of the stacked shape: labels and stamps bit
+    for bit against the plain version, two runs equal."""
+    import torch
+
+    from tissue_image_processing_tpu_torch.ops import flood_cuda
+    from tissue_image_processing_tpu_torch.utils.synthetic import settle_cases
+
+    cases = settle_cases(64, ((1, 1), (1, 700), (700, 1), (31, 65), (65, 31),
+                              (1001, 931)))
+    flat = np.full((2112, 1024), 0.25, np.float32)
+    one_seed = np.zeros(flat.shape, np.int32)
+    one_seed[-1, -1] = 1
+    cases["plateau_every_tile"] = (flat, one_seed)
+    for name, (lam, seeds) in cases.items():
+        lam = torch.from_numpy(lam).to(device)
+        seeds = torch.from_numpy(seeds).to(device)
+        got_l, got_t = flood_cuda.settle(lam, seeds)
+        rounds = int(flood_cuda._ROUNDS["settle"])
+        sweeps = int(flood_cuda._SWEEPS["settle"])
+        want_l, want_t, plain_sweeps = flood_cuda.settle_plain(
+            lam, seeds, return_sweeps=True)
+        assert torch.equal(got_l, want_l), f"settle ({name}): labels disagree"
+        assert torch.equal(got_t, want_t), f"settle ({name}): stamps disagree"
+        assert sweeps == plain_sweeps, (name, sweeps, plain_sweeps)
+        again = flood_cuda.settle(lam, seeds)
+        assert torch.equal(again[0], got_l) and torch.equal(again[1], got_t), name
+        ms = cuda_ms(lambda: flood_cuda.settle(lam, seeds), 2)
+        print(f"settle {name} {tuple(lam.shape)}: lbl and t bit-exact, two runs "
+              f"equal, {rounds} rounds, {sweeps} sweeps, {ms:.4f} ms")
 
 
 def check_diffusion_hard_cases(img, seeds):
@@ -481,20 +556,9 @@ def check_settle_unet(preds):
         ms=cuda_ms(lambda: flood_cuda.settle_mask(img), 20),
         plain_ms=cuda_ms(lambda: flood_cuda.settle_mask_plain(img), 3),
         bound=bound(8 * npx, 8 * npx))
-    got_l, got_t = flood_cuda.settle(img, seeds)
-    want_l, want_t, sweeps = flood_cuda.settle_plain(img, seeds,
-                                                     return_sweeps=True)
-    assert torch.equal(got_l, want_l), "settle labels (U-Net input) disagree with plain"
-    assert torch.equal(got_t, want_t), "settle stamps (U-Net input) disagree with plain"
-    row = dict(
-        err=max(max_abs_err(got_l, want_l), max_abs_err(got_t, want_t)),
-        ms=cuda_ms(lambda: flood_cuda.settle(img, seeds), 5),
-        plain_ms=cuda_ms(lambda: flood_cuda.settle_plain(img, seeds), 2),
-        bound=bound(16 * npx, 40 * npx * sweeps))
-    print(f"settle {H}x{W} (U-Net input, lam == img, {int(seeds.max())} seeds):"
-          f" lbl and t bit-exact, {sweeps} sweeps, kernel {row['ms']:.4f} ms, "
-          f"plain {row['plain_ms']:.4f} ms, bound {row['bound'][0]:.4f} ms "
-          f"({row['bound'][1]}); settle_mask bit-exact, kernel "
+    row = settle_row(img, seeds, f"settle {H}x{W} (U-Net input, lam == img, "
+                     f"{int(seeds.max())} seeds)", reps=5)
+    print(f"settle_mask {H}x{W} (U-Net input): bit-exact, kernel "
           f"{mask_row['ms']:.4f} ms, plain {mask_row['plain_ms']:.4f} ms, bound "
           f"{mask_row['bound'][0]:.4f} ms ({mask_row['bound'][1]})")
     return {"settle": row, "settle_mask": mask_row}
@@ -588,20 +652,57 @@ def check_projection_kernels(stack):
     all_planes = bound(2 * C * Z * Y * X + 4 * Y * X + 4 * C * Y * X, 0)[0]
     # per admitted pixel-plane: 17 y taps, 17 x taps, a multiply and a max
     # per channel
+    ms = cuda_ms_spread(lambda: fused.project_pass(stack, rel_z), 20)
     rows["proj_project"] = dict(
-        err=max_abs_err(got, want),
-        ms=cuda_ms(lambda: fused.project_pass(stack, rel_z), 20),
+        err=max_abs_err(got, want), ms=ms[0], ms_min=ms[1], ms_max=ms[2],
         plain_ms=cuda_ms(lambda: fused.project_pass_plain(stack, rel_z), 3),
         bound=bound(2 * C * planes + 4 * Y * X + 4 * C * Y * X,
                     (68 + 2 * C) * planes), library_ms=None)
-    print(f"proj_project {tuple(stack.shape)}: bit-exact, kernel "
-          f"{rows['proj_project']['ms']:.4f} ms, plain "
-          f"{rows['proj_project']['plain_ms']:.4f} ms, bound "
+    print(f"proj_project {tuple(stack.shape)}: bit-exact, kernel {spread(ms)}, "
+          f"plain {rows['proj_project']['plain_ms']:.4f} ms, bound "
           f"{rows['proj_project']['bound'][0]:.4f} ms "
           f"({rows['proj_project']['bound'][1]}; {planes / (Y * X):.2f} planes "
           f"a pixel of {Z}; reading every plane {all_planes:.4f} ms); z-map "
           f"range {int(rel_z.min())}..{int(rel_z.max())}")
+    check_project_cases(stack, rel_z)
     return rows
+
+
+def check_project_cases(stack, rel_z):
+    """The project pass off its main road, bit for bit against the plain
+    version: the shifted mask for the other channels (either reference
+    channel, both signs), the airyscan offset, both at once, a z-map with a
+    full-range step (every plane admitted in the tiles on the step), and a
+    ragged stack that no tile and no 16-byte word divides."""
+    import torch
+
+    from tissue_image_processing_tpu_torch.projection import fused
+
+    C, Z, Y, X = stack.shape
+    xx = torch.arange(X, device=stack.device)[None, :].expand(Y, X)
+    step = torch.where(xx < X // 2 + 3, 0, Z - 1).to(torch.int32).contiguous()
+    gen = torch.Generator(device=stack.device).manual_seed(3)
+    ragged = torch.randint(0, 65536, (2, 7, 97, 131), device=stack.device,
+                           generator=gen, dtype=torch.int32).to(torch.uint16)
+    ragged_z = torch.randint(0, 7, (97, 131), device=stack.device,
+                             generator=gen, dtype=torch.int32)
+    cases = (("atoh_shift 2", stack, rel_z, dict(atoh_shift=2)),
+             ("atoh_shift -3, reference channel 1", stack, rel_z,
+              dict(atoh_shift=-3, ref_channel=1)),
+             ("airyscan offset", stack, rel_z, dict(airyscan_offset=10000.0)),
+             ("offset and shift", stack, rel_z,
+              dict(airyscan_offset=10000.0, atoh_shift=1)),
+             ("full-range step", stack, step, {}),
+             ("ragged", ragged, ragged_z, dict(atoh_shift=1,
+                                               airyscan_offset=5000.0)),
+             ("ragged, one channel", ragged[:1].contiguous(), ragged_z, {}))
+    for name, img, zmap, kw in cases:
+        got = fused.project_pass(img, zmap, **kw)
+        want = fused.project_pass_plain(img, zmap, **kw)
+        torch.testing.assert_close(got, want, rtol=0, atol=0,
+                                   msg=f"project_pass ({name}) disagrees with plain")
+        ms = cuda_ms_spread(lambda: fused.project_pass(img, zmap, **kw), 5)
+        print(f"proj_project {name} {tuple(img.shape)}: bit-exact, {spread(ms)}")
 
 
 def projection_breakdown(stack, card: str):
@@ -691,6 +792,9 @@ def check_pipeline(card: str, movie):
     floods = -(-T // kw["batch"])
     assert launches["diffusion_bf"] == floods, launches
     assert launches["diffusion_cc"] == 2 * floods, launches
+    # and one settle, with its mask: a launch each
+    assert launches["settle"] == floods, launches
+    assert launches["settle_mask"] == floods, launches
     if Z > 1:
         assert all(launches[k] == T for k in PROJECTION_KERNELS), launches
     else:
@@ -802,6 +906,7 @@ def check_unet_pipeline(card: str, movie):
     assert all(launches[k] == T for k in PROJECTION_KERNELS), launches
     # two component minima of four launches each, in one stacked flood
     assert launches["cc_scan"] == 8 and launches["settle_mask"] == 1, launches
+    assert launches["settle"] == 1, launches
 
     labels = out["labels"]
     assert tuple(labels.shape) == (T, 1024, 1024), labels.shape

@@ -22,7 +22,8 @@ from scipy import ndimage as ndi
 from conftest import make_cell_image
 from tissue_image_processing_tpu_torch.ops import flood_cuda
 from tissue_image_processing_tpu_torch.ops import watershed as tws
-from tissue_image_processing_tpu_torch.utils.synthetic import coil_mask
+from tissue_image_processing_tpu_torch.utils.synthetic import (
+    coil_mask, settle_cases)
 
 jws = importlib.import_module("tissue_image_processing_tpu.ops.watershed")
 jfp = importlib.import_module("tissue_image_processing_tpu.ops.flood_pallas")
@@ -142,6 +143,156 @@ def test_settle_plain_matches_pallas(interpret_pallas):
     settled = want_l != 0
     np.testing.assert_array_equal(got_t.numpy()[settled], want_t[settled])
     assert (got_t.numpy()[~settled] == flood_cuda.BIG_T).all()
+
+
+# The settle's hard cases at the size of the emulation's 8 x 8 tiles; the
+# card-marked test below runs the kernel on the same cases at its own 64.
+SETTLE_RAGGED = ((1, 1), (1, 70), (70, 1), (7, 9), (31, 65), (65, 31))
+SETTLE_CASES = settle_cases(8, SETTLE_RAGGED)
+
+
+def _tiled_settle(lam, seeds, tile=8, k=3, gate="ring", by_stamp=True,
+                  order_seed=0):
+    """The schedule of the CUDA settle, emulated tile by tile in torch (no
+    main path runs this): rounds of ``k`` Jacobi sweeps on ``tile`` x ``tile``
+    tiles loaded with a ``k``-deep halo, the region a sweep may compute
+    shrinking by one ring a sweep; a tile's settled pixels stored at once;
+    tiles of a round taken one after the other in a random order, so a later
+    tile finds its neighbours' stores of the same round in its halo; the
+    loader's rule (stamp < the round's first sweep: read the label; BIG_T:
+    the seed; else unsettled); the gate (a tile runs iff itself or one of its
+    8 neighbours settled something in the last sweep of the round before,
+    and not at all once it has no unsettled pixel); the stop (a round whose
+    last sweep settled nothing anywhere). ``gate="own"`` (only the tile's own
+    last sweep) and ``by_stamp=False`` (the halo read as it stands) are the
+    unsound variants. Returns (lbl, t, rounds)."""
+    lam, seeds = torch.from_numpy(lam), torch.from_numpy(seeds)
+    H, W = lam.shape
+    mask = flood_cuda.settle_mask_plain(lam)
+    lbl = torch.full((H, W), -77, dtype=torch.int32)  # every pixel is written
+    t = torch.full((H, W), -77, dtype=torch.int32)
+    ny, nx = -(-H // tile), -(-W // tile)
+    E = tile + 2 * k
+    rng = np.random.default_rng(order_seed)
+    done = np.zeros((ny, nx), bool)
+    chg_prev = np.ones((ny, nx), bool)
+    rounds = 0
+    while True:
+        it0 = 1 + rounds * k
+        chg_now = np.zeros((ny, nx), bool)
+        for tile_id in rng.permutation(ny * nx):
+            ty, tx = divmod(int(tile_id), nx)
+            if rounds > 0:
+                near = chg_prev[max(ty - 1, 0):ty + 2, max(tx - 1, 0):tx + 2]
+                go = near.any() if gate == "ring" else chg_prev[ty, tx]
+                if done[ty, tx] or not go:
+                    continue
+            y0, x0 = ty * tile - k, tx * tile - k
+            ya, yb = max(y0, 0), min(y0 + E, H)
+            xa, xb = max(x0, 0), min(x0 + E, W)
+            img = (slice(ya, yb), slice(xa, xb))
+            reg = (slice(ya - y0, yb - y0), slice(xa - x0, xb - x0))
+            inside = torch.zeros((E, E), dtype=torch.bool)
+            inside[reg] = True
+            own = torch.zeros((E, E), dtype=torch.bool)
+            own[k:k + tile, k:k + tile] = True
+            own &= inside
+            if rounds == 0:
+                v = seeds[img]
+            elif by_stamp:
+                v = torch.where(t[img] < it0, lbl[img], torch.where(
+                    t[img] == flood_cuda.BIG_T, seeds[img], 0))
+            else:
+                v = lbl[img].clone()
+            r_lbl = torch.zeros((E, E), dtype=torch.int32)
+            r_lbl[reg] = v
+            r_mask = torch.zeros((E, E), dtype=torch.int32)
+            r_mask[reg] = mask[img]
+            r_t = torch.zeros((E, E), dtype=torch.int32)
+            if rounds == 0:
+                lbl[img][own[reg]] = seeds[img][own[reg]]
+                t[img][own[reg]] = torch.where(
+                    seeds[img][own[reg]] > 0, 0, flood_cuda.BIG_T).to(torch.int32)
+            last = False
+            for j in range(1, k + 1):
+                new, can = flood_cuda._settle_step(r_mask, r_lbl)
+                valid = torch.zeros((E, E), dtype=torch.bool)
+                valid[j:E - j, j:E - j] = True
+                can = can & valid & inside
+                last = bool(can.any())
+                if not last:
+                    break
+                r_lbl = torch.where(can, new, r_lbl)
+                r_t[can] = it0 + j - 1
+            stored = own & (r_t > 0)
+            lbl[img][stored[reg]] = r_lbl[reg][stored[reg]]
+            t[img][stored[reg]] = r_t[reg][stored[reg]]
+            chg_now[ty, tx] = last
+            done[ty, tx] = not bool((own & (r_lbl == 0)).any())
+        rounds += 1
+        if not chg_now.any():
+            return lbl, t, rounds
+        chg_prev = chg_now
+
+
+@pytest.mark.parametrize("order_seed", [0, 1])
+@pytest.mark.parametrize("name", sorted(SETTLE_CASES))
+def test_settle_tiled_schedule_matches_plain(name, order_seed):
+    """The kernel's schedule (emulated) gives the plain version's labels and
+    arrival stamps bit for bit, whatever the order of the tiles in a round."""
+    lam, seeds = SETTLE_CASES[name]
+    want_l, want_t, sweeps = flood_cuda.settle_plain(
+        torch.from_numpy(lam), torch.from_numpy(seeds), return_sweeps=True)
+    got_l, got_t, rounds = _tiled_settle(lam, seeds, order_seed=order_seed)
+    assert torch.equal(got_l, want_l)
+    assert torch.equal(got_t, want_t)
+    assert rounds == sweeps // 3 + 1  # k = 3: stops after the first idle last sweep
+
+
+@pytest.mark.parametrize("tile,k", [(8, 8), (16, 5), (5, 2)])
+def test_settle_tiled_schedule_other_tilings(tile, k):
+    for name in ("ragged_31x65", "serpentine", "lines_cross_in_corner",
+                 "negative_seeds"):
+        lam, seeds = SETTLE_CASES[name]
+        want = flood_cuda.settle_plain(torch.from_numpy(lam),
+                                       torch.from_numpy(seeds))
+        got = _tiled_settle(lam, seeds, tile=tile, k=k)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), name
+
+
+@pytest.mark.parametrize("variant", [dict(gate="own"), dict(by_stamp=False)],
+                         ids=["own_tile_gate", "halo_read_in_place"])
+def test_settle_tiled_schedule_unsound_variants_differ(variant):
+    """The two tempting shortcuts are wrong, and these cases can tell: a
+    tile that reruns only when its own last sweep settled something misses a
+    front that enters from next door; a halo read as it stands sees pixels a
+    neighbour settled later in the same round."""
+    differ = []
+    for name, (lam, seeds) in sorted(SETTLE_CASES.items()):
+        want = flood_cuda.settle_plain(torch.from_numpy(lam),
+                                       torch.from_numpy(seeds))
+        got = _tiled_settle(lam, seeds, **variant)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            differ.append(name)
+    assert differ, "the unsound schedule passed every case"
+
+
+@pytest.mark.parametrize("name", sorted(SETTLE_CASES))
+def test_settle_plain_matches_pallas_on_hard_cases(interpret_pallas, name):
+    """The hard cases pinned to the JAX package too. Both sides get the case
+    with its rows padded to the Pallas row block (+inf, no seed): the pad is
+    part of the input here, since labels can travel through +inf pixels."""
+    lam, seeds = SETTLE_CASES[name]
+    lam, seeds = _pad_rows(lam, np.inf), _pad_rows(seeds, 0)
+    want_l, want_t = jfp.settle_pallas_loop.__wrapped__(
+        jnp.asarray(lam), jnp.asarray(seeds))
+    want_l, want_t = np.asarray(want_l), np.asarray(want_t)
+    got_l, got_t = flood_cuda.settle_plain(torch.from_numpy(lam),
+                                           torch.from_numpy(seeds))
+    np.testing.assert_array_equal(got_l.numpy(), want_l)
+    stamped = got_t.numpy() != flood_cuda.BIG_T
+    np.testing.assert_array_equal(got_t.numpy()[stamped], want_t[stamped])
+    assert (want_t[~stamped] == 1 << 29).all()
 
 
 def test_settle_mask_plain_matches_jax():
@@ -459,6 +610,24 @@ def test_flood_kernels_match_plain(cuda_device):
     got_l, got_t = flood_cuda.settle(lam, seeds)
     want_l, want_t = flood_cuda.settle_plain(lam, seeds)
     assert torch.equal(got_l, want_l) and torch.equal(got_t, want_t)
+
+
+SETTLE_CASES_CARD = settle_cases(64, ((1, 1), (1, 700), (700, 1), (31, 65),
+                                      (65, 31), (1001, 931)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(SETTLE_CASES_CARD))
+def test_settle_kernel_matches_plain_on_hard_cases(cuda_device, name):
+    lam, seeds = (torch.from_numpy(a).to(cuda_device)
+                  for a in SETTLE_CASES_CARD[name])
+    got_l, got_t = flood_cuda.settle(lam, seeds)
+    want_l, want_t, sweeps = flood_cuda.settle_plain(lam, seeds,
+                                                     return_sweeps=True)
+    assert torch.equal(got_l, want_l) and torch.equal(got_t, want_t)
+    assert int(flood_cuda._SWEEPS["settle"]) == sweeps
+    again = flood_cuda.settle(lam, seeds)  # two runs equal
+    assert torch.equal(again[0], got_l) and torch.equal(again[1], got_t)
 
 
 @pytest.mark.cuda

@@ -162,7 +162,8 @@ def test_score_pass_plain_matches_pallas(off):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5)
 
 
-@pytest.mark.parametrize("shift,off", [(0, 0.0), (1, 0.0), (-2, 10000.0)])
+@pytest.mark.parametrize("shift,off", [(0, 0.0), (1, 0.0), (-2, 10000.0),
+                                       (0, 10000.0), (3, 10000.0), (-1, 0.0)])
 def test_project_pass_plain_matches_pallas(shift, off):
     img = make_stack(seed=5, offset=off)
     yy, xx = np.mgrid[0:128, 0:128]
@@ -174,6 +175,57 @@ def test_project_pass_plain_matches_pallas(shift, off):
             ref_channel=0, atoh_shift=shift))
     got = t_fused.project_pass(_u16(img), torch.from_numpy(rel_z), off, 0, shift)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5)
+
+
+def _step_zmap(Y, X, Z):
+    """0 on the left, Z - 1 on the right: the tiles on the step admit every
+    plane."""
+    return np.where(np.arange(X)[None, :] < X // 2 + 3, 0, Z - 1
+                    ).astype(np.int32).repeat(Y, axis=0)
+
+
+PROJECT_CASES = {
+    "step": dict(zmap="step"),
+    "step_shift_offset": dict(zmap="step", shift=-2, off=10000.0),
+    "ref_channel_1": dict(shift=2, ref=1),
+    "ragged": dict(shape=(7, 97, 100)),
+    "ragged_shift_offset": dict(shape=(7, 97, 100), shift=1, off=10000.0),
+    "ragged_step": dict(shape=(5, 70, 90), zmap="step", shift=-1),
+}
+
+
+def _project_case(name, seed=5):
+    """(img (2, Z, Y, X) float32, z-map int32, offset, ref_channel, shift)."""
+    c = PROJECT_CASES[name]
+    Z, Y, X = c.get("shape", (8, 128, 128))
+    off = c.get("off", 0.0)
+    img = make_stack(Z=Z, Y=Y, X=X, seed=seed, offset=off)
+    if c.get("zmap") == "step":
+        rel_z = _step_zmap(Y, X, Z)
+    else:
+        rel_z = np.random.default_rng(seed).integers(0, Z, (Y, X)).astype(np.int32)
+    return img, rel_z, off, c.get("ref", 0), c.get("shift", 0)
+
+
+@pytest.mark.parametrize("name", sorted(PROJECT_CASES))
+def test_project_pass_plain_matches_pallas_on_hard_inputs(name):
+    """The shifted mask with either reference channel, the airyscan offset,
+    a full-range step in the z-map, and ragged stacks. The Pallas kernel
+    takes whole 64 x 128 blocks only, so a ragged stack goes to it padded to
+    (128, 128): the z-map by edge replication (>= 8 pixels, the blur's
+    radius: the mask of a replicated z-map is the replicated mask) and the
+    channels by zeros; the crop is the ragged result."""
+    img, rel_z, off, ref, shift = _project_case(name)
+    Y, X = rel_z.shape
+    pad = ((0, 128 - Y), (0, 128 - X))
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(j_fused._project_pass(
+            jnp.asarray(np.pad(img, ((0, 0), (0, 0)) + pad)),
+            jnp.asarray(np.pad(rel_z, pad, mode="edge")), airyscan_offset=off,
+            ref_channel=ref, atoh_shift=shift))[:, :Y, :X]
+    got = t_fused.project_pass(_u16(img), torch.from_numpy(rel_z), off, ref, shift)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5)
+    assert got.numpy().max() > 0
 
 
 def test_passes_reject_bad_input():
@@ -287,7 +339,7 @@ def test_score_kernel_matches_plain(cuda_device, off):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shift", [0, 1])
+@pytest.mark.parametrize("shift", [0, 1, -3])
 def test_project_kernel_matches_plain(cuda_device, shift):
     img = _u16(make_stack(Z=30, Y=256, X=192, seed=14)).to(cuda_device)
     yy, xx = np.mgrid[0:256, 0:192]
@@ -296,6 +348,20 @@ def test_project_kernel_matches_plain(cuda_device, shift):
                                      ).astype(np.int32)).to(cuda_device)
     got = t_fused.project_pass(img, rel_z, 0.0, 0, shift)
     want = t_fused.project_pass_plain(img, rel_z, 0.0, 0, shift)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels", [1, 2, 3])
+@pytest.mark.parametrize("name", sorted(PROJECT_CASES))
+def test_project_kernel_matches_plain_on_hard_inputs(cuda_device, name, channels):
+    img, rel_z, off, ref, shift = _project_case(name, seed=16)
+    img = np.concatenate([img, img[:1] // 2])[:channels]
+    img = _u16(img).to(cuda_device)
+    rel_z = torch.from_numpy(rel_z).to(cuda_device)
+    ref = min(ref, channels - 1)
+    got = t_fused.project_pass(img, rel_z, off, ref, shift)
+    want = t_fused.project_pass_plain(img, rel_z, off, ref, shift)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 

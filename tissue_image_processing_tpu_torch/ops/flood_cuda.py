@@ -24,14 +24,21 @@ On the card (``csrc/flood.cu``, ``csrc/cc_scan.cu``):
   shared memory, seams united with lock-free ``atomicMin`` unions, the
   minima folded once per tile and component. Four launches whatever the
   mask, no host read;
-- the settle runs exact Jacobi sweeps in batches of ``SWEEP_BATCH`` with one
-  host flag read a batch.
+- the settle is temporal blocking with ghost zones, again one persistent
+  cooperative launch a call: a round is eight exact Jacobi sweeps on 64 x 64
+  tiles held in shared memory with an eight-pixel halo, the region that is
+  still exact shrinking by one ring a sweep; rounds repeat, over the tiles
+  near which the round before still settled something, until a round's last
+  sweep settles nothing. The arrival stamp tells a loader whether a
+  neighbour's pixel was settled when the round began. The host reads
+  nothing; the first round builds the initial state from the seeds.
 
 All are exact. The diffusion fixpoints are minima (or min-max selections)
 over sets and do not depend on the order of the updates, so the kernels, the
 plain versions (Jacobi sweeps; row / column scans) and each other agree bit
 for bit, in every run. The settle's stamps do depend on the schedule, and
-both its versions keep exact Jacobi sweeps (stamp = sweep index, seeds 0).
+both its versions compute the exact Jacobi sequence (stamp = sweep index,
+seeds 0).
 
 CPU tensors run the plain versions; CUDA tensors launch the kernels or raise.
 """
@@ -49,15 +56,12 @@ from tissue_image_processing_tpu_torch.ops.morphology import shift2d
 __all__ = ["bf_flood", "bf_flood_plain", "cc_diffusion", "cc_diffusion_plain",
            "cc_scan", "cc_scan_plain", "cc_connectivity",
            "settle_mask", "settle_mask_plain", "settle", "settle_plain",
-           "BIG_T", "SWEEP_BATCH"]
+           "BIG_T"]
 
 # Arrival stamp of pixels that never settle. The line pass only compares
 # stamps of settled, labelled pixels, so the value is never read; it is the
 # XLA path's ``iinfo(int32).max // 2``.
 BIG_T = (1 << 30) - 1
-# Settle sweeps per batch: only the last sweep of a batch reports "changed",
-# and the host reads that flag once per batch (the TPU kernels' _SWEEP_BATCH).
-SWEEP_BATCH = 8
 _SCAN_BIG = (1 << 31) - 1
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -66,14 +70,17 @@ _SIGNATURES = {
     "bf_diffusion": (_P, _P, _P, _P, _I, _I, _P),
     "cc_diffusion": (_P, _P, _P, _P, _I, _I, _P),
     "settle_mask": (_P, _P, _I, _I, _P),
-    "settle_sweeps": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "settle_flag_ints": (_I, _I),
+    "settle_sweeps": (_P, _P, _P, _P, _P, _I, _I, _P),
 }
 _SCAN_SIGNATURES = {"cc_scan_min": (_P, _P, _P, _P, _I, _I, _P)}
 _SCAN_LAUNCHES = 4  # tiles, seams, fold, result
 _INF = float("inf")
-# Rounds of the last diffusion call on the card, by kernel name: one-element
-# device tensors (reading one synchronises; the wrappers never do).
+# Rounds of the last diffusion or settle call on the card, by kernel name, and
+# the sweeps of the last settle call: one-element device tensors (reading one
+# synchronises; the wrappers never do).
 _ROUNDS = {}
+_SWEEPS = {}
 
 
 def _lib():
@@ -108,16 +115,6 @@ def _require_like(ref: torch.Tensor, other: torch.Tensor, what: str) -> None:
     if other.shape != ref.shape or other.device != ref.device:
         raise ValueError(f"{what}: expected {tuple(ref.shape)} on {ref.device}, "
                          f"got {tuple(other.shape)} on {other.device}")
-
-
-def _run_batches(launch, name: str) -> None:
-    """Launch SWEEP_BATCH-sweep batches until a batch's last sweep changed
-    nothing. ``launch()`` returns the batch's device flag."""
-    while True:
-        flag = launch()
-        _device.LAUNCHES[name] += SWEEP_BATCH
-        if int(flag.item()) == 0:
-            return
 
 
 def _require_mask(mask: torch.Tensor, what: str) -> None:
@@ -385,8 +382,7 @@ def _settle_step(mask: torch.Tensor, lbl: torch.Tensor):
 
 
 def _settle_init(seeds: torch.Tensor):
-    # a copy: the kernel path updates the label state in place
-    lbl0 = seeds.to(torch.int32, copy=True)
+    lbl0 = seeds.to(torch.int32)
     t0 = torch.where(seeds > 0, 0, BIG_T).to(torch.int32)
     return lbl0, t0
 
@@ -418,23 +414,18 @@ def settle(lam: torch.Tensor, seeds: torch.Tensor
     if lam.device.type == "cpu":
         return settle_plain(lam, seeds)
     mask = settle_mask(lam)
+    seeds = seeds.to(torch.int32).contiguous()
+    _device.require_cuda_tensor(seeds, torch.int32, 2, "settle seeds")
+    _require_label_range(seeds, "settle")
     lib = _lib()
     H, W = mask.shape
-    a, t = _settle_init(seeds)
-    a, t = a.contiguous(), t.contiguous()
-    _device.require_cuda_tensor(a, torch.int32, 2, "settle")
-    b = torch.empty_like(a)
-    flag = torch.empty((1,), dtype=torch.int32, device=a.device)
-    it0 = [1]
-
-    def launch():
-        rc = lib.settle_sweeps(_device.ptr(mask), _device.ptr(a),
-                               _device.ptr(b), _device.ptr(t),
-                               _device.ptr(flag), H, W, it0[0], SWEEP_BATCH,
-                               _device.stream_ptr())
-        _device.check_cuda(lib, rc, "settle")
-        it0[0] += SWEEP_BATCH
-        return flag
-
-    _run_batches(launch, "settle")
-    return a, t
+    lbl, t = torch.empty_like(seeds), torch.empty_like(seeds)
+    flags = torch.empty((lib.settle_flag_ints(H, W),), dtype=torch.int32,
+                        device=seeds.device)
+    _ROUNDS["settle"], _SWEEPS["settle"] = flags[-2:-1], flags[-1:]
+    rc = lib.settle_sweeps(_device.ptr(mask), _device.ptr(seeds),
+                           _device.ptr(lbl), _device.ptr(t),
+                           _device.ptr(flags), H, W, _device.stream_ptr())
+    _device.check_cuda(lib, rc, "settle")
+    _device.LAUNCHES["settle"] += 1
+    return lbl, t

@@ -183,10 +183,11 @@ def project_pass(img: torch.Tensor, rel_z: torch.Tensor,
     if Z > _MAX_Z:
         raise ValueError(f"project_pass: at most {_MAX_Z} z-planes, got {Z}")
     lib = _device.load_library("projection", _SIGNATURES)
-    taps = _device.host_to_device(
-        torch.tensor(sum(_PROJECT_TAPS, ()), dtype=torch.float32), img.device)
+    # the taps go in as kernel parameters: a host array
+    taps = (ctypes.c_float * sum(map(len, _PROJECT_TAPS)))(
+        *sum(_PROJECT_TAPS, ()))
     out = torch.empty((C, Y, X), dtype=torch.float32, device=img.device)
-    rc = lib.proj_project(_device.ptr(img), _device.ptr(rel_z), _device.ptr(taps),
+    rc = lib.proj_project(_device.ptr(img), _device.ptr(rel_z), taps,
                           _device.ptr(out), C, Z, Y, X,
                           *(len(k) for k in _PROJECT_TAPS),
                           float(airyscan_offset), int(ref_channel),
