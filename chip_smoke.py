@@ -36,13 +36,21 @@ Phases (any failure exits non-zero; no phase catches and continues):
    settle (labels AND arrival stamps) and both projection passes bit for
    bit; times are the median of
    five repeats of a CUDA-event bracket, the redesigned kernels' with their
-   spread; then the device time of each step of ``fused_projection`` on
-   that frame;
-3. hold the fused projection against the unfused one on the card (the JAX
+   spread, and for the score pass, the blur and the settle mask also the
+   device time of calls replayed from a CUDA graph; then the device time of
+   each step of ``fused_projection`` on that frame;
+3. the functions ported beside the main path, at full width on 1024^2
+   frames, each on the card against the CPU route with the kernels it
+   launches asserted: ``watershed_segmentation`` on one frame (equal to
+   frame 0 of the batch form), ``connected_components`` of its cells
+   (4-connected through the union-find scan, 8-connected through the plain
+   route), ``contact_length_matrix`` (both forms), ``segment_percentile``,
+   ``band_pass_filter`` and ``local_drift_field``;
+4. hold the fused projection against the unfused one on the card (the JAX
    tolerance class: >= 99% of pixels within one plane, median relative
    error < 0.02 where the z-maps agree), and ``unet_postprocess_batch`` on
    the card against the CPU route (exact);
-4. drive ``movie_pipeline`` on a synthetic pre-projected movie (T=8, C=2,
+5. drive ``movie_pipeline`` on a synthetic pre-projected movie (T=8, C=2,
    Z=1, 1024^2), on the raw headline movie (T=8, C=2, Z=30, 1024^2 uint16)
    and on that movie through the U-Net branch at the reference
    architecture's full width (depth 3, 128 base filters, bfloat16, batch 8,
@@ -57,15 +65,16 @@ Phases (any failure exits non-zero; no phase catches and continues):
    Z > 1 movie), cells per frame and id
    persistence as expected, ``movie_pipeline_chunked`` (3-frame chunks)
    identical to the unchunked run; print frames/s and the pipeline's own stage seconds;
-5. compare the card with the CPU path of the port on small movies: the
+6. compare the card with the CPU path of the port on small movies: the
    pre-projected watershed path, the fused projection (2, 8, 128, 128)
    against its plain route on CPU tensors, a Z > 1 pipeline at a shape
    the fused gate refuses (96^2, Z=6), so both take the unfused route, and
    the U-Net branch (probabilities within 0.01, two and a half bfloat16
    steps: the card rounds each conv's output once more; foreground
    agreement >= 0.99);
-6. print the kernel table as one JSON object (launches from the Z=30
-   watershed run, the component minimum's from the U-Net run), then the
+7. print the kernel table as one JSON object (launches from the Z=30
+   watershed run, the component minimum's from the U-Net run, and each
+   kernel's launches by function of phase 3), then the
    card's line, and
    as the last line ``{"ok": true, "device": {...}}``.
 
@@ -74,6 +83,7 @@ Imports nothing of JAX or the JAX package.
 
 from __future__ import annotations
 
+import importlib
 import json
 import subprocess
 import sys
@@ -190,7 +200,7 @@ def check_kernels(frames):
     import torch
 
     from tissue_image_processing_tpu_torch.ops import blur_cuda, flood_cuda
-    from tissue_image_processing_tpu_torch.ops import watershed as ws
+    ws = importlib.import_module("tissue_image_processing_tpu_torch.ops.watershed")
     from tissue_image_processing_tpu_torch.ops.filters import (
         gaussian_blur, gaussian_kernel1d)
     from tissue_image_processing_tpu_torch.ops.local_threshold import (
@@ -289,15 +299,20 @@ def check_kernels(frames):
     got = flood_cuda.settle_mask(lam)
     want = flood_cuda.settle_mask_plain(lam)
     assert torch.equal(got, want), "settle_mask disagrees with its plain version"
+    # lam read once, the mask written once (8 B/px); eight compares a pixel
     rows["settle_mask"] = dict(
         err=max_abs_err(got, want),
         ms=cuda_ms(lambda: flood_cuda.settle_mask(lam), 50),
+        device_ms=graph_ms(lambda: flood_cuda.settle_mask(lam)),
         plain_ms=cuda_ms(lambda: flood_cuda.settle_mask_plain(lam), 5),
         bound=bound(8 * npx, 8 * npx), library_ms=None)
 
     rows["settle"] = settle_row(lam, seeds, f"settle {H}x{W}", reps=10)
     print(f"settle_mask {H}x{W}: bit-exact, kernel "
-          f"{rows['settle_mask']['ms']:.4f} ms")
+          f"{rows['settle_mask']['ms']:.4f} ms, device "
+          f"{rows['settle_mask']['device_ms']:.4f} ms, bound "
+          f"{rows['settle_mask']['bound'][0]:.4f} ms "
+          f"({rows['settle_mask']['bound'][1]})")
     check_settle_hard_cases(lam.device)
     return rows
 
@@ -448,7 +463,7 @@ def check_cc_scan(preds):
 
     from tissue_image_processing_tpu_torch.models.predictor import _boundary
     from tissue_image_processing_tpu_torch.ops import flood_cuda
-    from tissue_image_processing_tpu_torch.ops import watershed as ws
+    ws = importlib.import_module("tissue_image_processing_tpu_torch.ops.watershed")
     from tissue_image_processing_tpu_torch.utils.synthetic import coil_mask
 
     boundary, _ = _boundary(preds, 0.1, 5, 7)
@@ -552,7 +567,8 @@ def check_settle_unet(preds):
 
     from tissue_image_processing_tpu_torch.models.predictor import _boundary
     from tissue_image_processing_tpu_torch.ops import flood_cuda
-    from tissue_image_processing_tpu_torch.ops import watershed as ws
+    from tissue_image_processing_tpu_torch.utils.kernel_variants import graph_ms
+    ws = importlib.import_module("tissue_image_processing_tpu_torch.ops.watershed")
 
     boundary, _ = _boundary(preds, 0.1, 5, 7)
     img = ws.stack_frames(boundary.to(torch.float32))
@@ -565,18 +581,20 @@ def check_settle_unet(preds):
     mask_row = dict(
         err=max_abs_err(got, want),
         ms=cuda_ms(lambda: flood_cuda.settle_mask(img), 20),
+        device_ms=graph_ms(lambda: flood_cuda.settle_mask(img)),
         plain_ms=cuda_ms(lambda: flood_cuda.settle_mask_plain(img), 3),
         bound=bound(8 * npx, 8 * npx))
     row = settle_row(img, seeds, f"settle {H}x{W} (U-Net input, lam == img, "
                      f"{int(seeds.max())} seeds)", reps=5)
     print(f"settle_mask {H}x{W} (U-Net input): bit-exact, kernel "
-          f"{mask_row['ms']:.4f} ms, plain {mask_row['plain_ms']:.4f} ms, bound "
+          f"{mask_row['ms']:.4f} ms, device {mask_row['device_ms']:.4f} ms, "
+          f"plain {mask_row['plain_ms']:.4f} ms, bound "
           f"{mask_row['bound'][0]:.4f} ms ({mask_row['bound'][1]})")
     return {"settle": row, "settle_mask": mask_row}
 
 
 def check_postprocess(preds):
-    """Phase 3 for the U-Net post-process: the card against the CPU route,
+    """Phase 4 for the U-Net post-process: the card against the CPU route,
     exactly (on the first two frames: the plain scan and settle are slow on
     the CPU), and the cells a frame of all eight."""
     import torch
@@ -806,7 +824,7 @@ def projection_breakdown(stack, card: str):
 
 
 def check_fused_vs_unfused(stack):
-    """Phase 3: the fused projection against the unfused one on the card,
+    """Phase 4: the fused projection against the unfused one on the card,
     to the JAX package's tolerance class (tests/test_projection_fused.py)."""
     from tissue_image_processing_tpu_torch.projection.fused import (
         fused_projection)
@@ -845,7 +863,7 @@ def blur_launches(expected) -> dict:
 
 
 def check_pipeline(card: str, movie):
-    """Phase 4: one watershed main path (Z == 1 pre-projected, or the raw
+    """Phase 5: one watershed main path (Z == 1 pre-projected, or the raw
     Z-plane movie), its launch counts, chunked == unchunked."""
     import torch
 
@@ -959,7 +977,7 @@ def random_unet_config(frame, depth: int, base_filters: int, batch: int,
 
 
 def check_unet_pipeline(card: str, movie):
-    """Phase 4 for the U-Net branch: the raw headline movie through
+    """Phase 5 for the U-Net branch: the raw headline movie through
     ``movie_pipeline(unet=...)`` at the reference architecture's full width,
     its launch counts; then chunked == unchunked."""
     import torch
@@ -1027,7 +1045,7 @@ def check_unet_pipeline(card: str, movie):
 
 
 def check_card_vs_cpu():
-    """Phase 5: the card against the port's CPU path on small inputs."""
+    """Phase 6: the card against the port's CPU path on small inputs."""
     import torch
 
     from tissue_image_processing_tpu_torch.core.pipeline import movie_pipeline
@@ -1091,6 +1109,129 @@ def check_card_vs_cpu():
           f"{max_abs_err(gp[:, same], wp[:, same]):.3g} where equal")
 
 
+ONE_FRAME_BLUR = (1, 1024, 1024, 1, 25, 25)  # watershed_segmentation's blur
+BAND_PASS_BLUR = (1, 1024, 1024, 1, 9, 9)     # band_pass_filter's sigma 1
+
+
+def launched(kernels) -> dict:
+    """The launch counts of the calls since the last reset: those named in
+    ``kernels`` exactly as given, every other kernel none."""
+    import tissue_image_processing_tpu_torch as tipt
+
+    got = {k: v for k, v in tipt.LAUNCHES.items() if v}
+    want = {k: v for k, v in kernels.items() if v}
+    assert got == want, f"launches {got}, expected {want}"
+    return got
+
+
+def check_ported_functions(frames, card: str):
+    """Phase 3: the functions ported beside the main path, at full width on
+    1024^2 frames of the synthetic movie, on the card against the CPU route
+    (or the batch form), with the kernels each one launches:
+    ``watershed_segmentation`` on one frame equal to frame 0 of the batch
+    form (blur 1, BF 1, CC 2, settle mask 1, settle 1); the connected
+    components of its cells (the watershed lines inverted) by the union-find
+    scan (4 launches) and, 8-connected, by the plain route on the card, both
+    equal to the CPU; the contact matrices (exact and run-length forms) and
+    per-cell percentiles exactly; the band-pass filter (one blur launch and
+    the band matrix) within the CPU test's 1e-6 on [0, 1) values; the local
+    drift field (16 windows of 700^2) within 1e-4 px. Returns each kernel's
+    launches by function."""
+    import torch
+
+    import tissue_image_processing_tpu_torch as tipt
+    from tissue_image_processing_tpu_torch.core.tracking import local_drift_field
+    from tissue_image_processing_tpu_torch.ops.components import (
+        connected_components)
+    from tissue_image_processing_tpu_torch.ops.filters import band_pass_filter
+    from tissue_image_processing_tpu_torch.ops.neighbors import (
+        contact_length_matrix, contact_length_matrix_checked)
+    from tissue_image_processing_tpu_torch.ops.percentile import (
+        segment_percentile)
+    ws = importlib.import_module("tissue_image_processing_tpu_torch.ops.watershed")
+
+    by_caller = {}
+    frame = frames[0].contiguous()
+    kw = dict(imgthresh=0.2, std=3.0, block_size=101)
+    tipt.reset_launches()
+    labels = ws.watershed_segmentation(frame, **kw)
+    flood = {"blur3d": 1, "diffusion_bf": 1, "diffusion_cc": 2,
+             "settle_mask": 1, "settle": 1}
+    by_caller["watershed_segmentation"] = launched(flood)
+    blur_launches({ONE_FRAME_BLUR: 1})
+    batch = ws.watershed_segmentation_batch(frame[None], **kw)[0]
+    assert torch.equal(labels, batch), "watershed_segmentation != batch form"
+    ms = cuda_ms(lambda: ws.watershed_segmentation(frame, **kw), 3)
+    cells = int(labels.max())
+    assert cells > 200 * frame.numel() // 2 ** 20, cells
+    print(f"watershed_segmentation {tuple(frame.shape)}: equal to frame 0 of "
+          f"the batch form, {cells} cells, launches "
+          f"{by_caller['watershed_segmentation']}, {ms:.4f} ms on {card}")
+
+    mask = labels > 0
+    mask_cpu = mask.cpu()
+    for conn in (1, 2):
+        tipt.reset_launches()
+        comp = connected_components(mask, connectivity=conn)
+        got = launched({"cc_scan": 4 if conn == 1 else 0})
+        if conn == 1:
+            by_caller["connected_components"] = got
+        assert torch.equal(comp.cpu(), connected_components(
+            mask_cpu, connectivity=conn)), f"components ({conn}): card != CPU"
+        ms = cuda_ms_spread(lambda: connected_components(mask, connectivity=conn),
+                            10 if conn == 1 else 2)
+        print(f"connected_components {tuple(mask.shape)} connectivity {conn} "
+              f"(mask: that frame's cells): card == CPU, {int(comp.max())} "
+              f"components, launches {got}, {spread(ms)}")
+
+    cap = 1024
+    for k in (None, 192):
+        got, over = contact_length_matrix_checked(labels, cap, compact_k=k) \
+            if k else (contact_length_matrix(labels, cap), None)
+        want, want_over = contact_length_matrix_checked(labels.cpu(), cap,
+                                                        compact_k=k) \
+            if k else (contact_length_matrix(labels.cpu(), cap), None)
+        assert torch.equal(got.cpu(), want), f"contact matrix (k={k}): card != CPU"
+        assert over is None or bool(over) == bool(want_over)
+        ms = cuda_ms(lambda: contact_length_matrix(labels, cap, compact_k=k), 5)
+        print(f"contact_length_matrix compact_k={k}: card == CPU, "
+              f"{int((got > 0).sum()) // 2} contacts, {ms:.4f} ms")
+    for q in (50.0, 95.0):
+        got = segment_percentile(frame, labels, cap + 1, q)
+        want = segment_percentile(frame.cpu(), labels.cpu(), cap + 1, q)
+        assert torch.equal(got.cpu(), want), f"segment_percentile {q}: card != CPU"
+        ms = cuda_ms(lambda: segment_percentile(frame, labels, cap + 1, q), 5)
+        print(f"segment_percentile q={q}: card == CPU over {cap + 1} "
+              f"segments, {ms:.4f} ms")
+
+    x = frame / (frame.max() + 1.0)  # [0, 1), the CPU test's value range
+    tipt.reset_launches()
+    got = band_pass_filter(x, 1.0, 4.0)
+    by_caller["band_pass_filter"] = launched({"blur3d": 1})
+    blur_launches({BAND_PASS_BLUR: 1})
+    err = max_abs_err(got.cpu(), band_pass_filter(x.cpu(), 1.0, 4.0))
+    assert err <= 1e-6, f"band_pass_filter card vs CPU {err}"
+    ms = cuda_ms(lambda: band_pass_filter(x, 1.0, 4.0), 5)
+    print(f"band_pass_filter sigmas 1 / 4: card vs CPU max_abs_err {err:.3g}, "
+          f"{ms:.4f} ms")
+
+    tipt.reset_launches()
+    gy, gx = local_drift_field(frames[0], frames[1])
+    launched({})
+    wy, wx = local_drift_field(frames[0].cpu(), frames[1].cpu())
+    err = max(max_abs_err(gy.cpu(), wy), max_abs_err(gx.cpu(), wx))
+    assert err <= 1e-4, f"local_drift_field card vs CPU {err}"
+    ms = cuda_ms(lambda: local_drift_field(frames[0], frames[1]), 2)
+    print(f"local_drift_field 700 / 100 on {tuple(frames[0].shape)}: card vs "
+          f"CPU max_abs_err {err:.3g} px, mean shift ({float(gy.mean()):.3f}, "
+          f"{float(gx.mean()):.3f}), {ms:.4f} ms")
+    out = {}
+    for fn, counts in by_caller.items():
+        for name, n in counts.items():
+            out.setdefault(name, {})[fn] = n
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1115,6 +1256,7 @@ def main() -> int:
     frames = _reference_frames(make_movie(T=2, Z=1, H=1024, W=1024, seed=2),
                                0, torch.device("cuda"))
     rows = check_kernels(frames)
+    by_caller = check_ported_functions(frames, card)
     t0 = time.time()
     movie_z1 = make_movie(T=8, Z=1, H=1024, W=1024, seed=0).astype(np.uint16)
     movie_z30 = make_movie(T=8, Z=30, H=1024, W=1024, seed=0).astype(np.uint16)
@@ -1143,6 +1285,8 @@ def main() -> int:
         if name in unet_rows:  # the same kernel on the U-Net path's input
             u = unet_rows[name]
             at_unet = {"max_abs_err_unet": u["err"], "ms_unet": u["ms"],
+                       **({"device_ms_unet": u["device_ms"]}
+                          if "device_ms" in u else {}),
                        "plain_ms_unet": u["plain_ms"],
                        "bound_ms_unet": u["bound"][0],
                        "bound_by_unet": u["bound"][1]}
@@ -1167,6 +1311,8 @@ def main() -> int:
             "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "library_ms": r["library_ms"], **at_unet,
+            **({"launches_by_function": by_caller[name]}
+               if name in by_caller else {}),
             **{k: r[k] for k in ("ms_min", "ms_max", "device_ms") if k in r}})
     print(json.dumps({"kernels": table}))
     print(card_line())

@@ -1,7 +1,9 @@
-"""PyTorch port vs the JAX package: threshold, morphology, Gaussian blur.
+"""PyTorch port vs the JAX package: threshold, morphology, Gaussian blur,
+band-pass filter.
 
 Inputs come from a numpy seed and go through both functions. Threshold and
-morphology are exact (max/min only). The blur is held to the JAX blur-kernel
+morphology (rectangular and plus-shaped max / min filters) are exact (max /
+min only). The blur is held to the JAX blur-kernel
 test's tolerance (rtol 2e-6, atol 1e-4): both sides sum the same taps in the
 same order, but XLA on the CPU fuses each multiply-add, so bit equality
 cannot be asked. The CUDA kernel itself equals its plain version bit for bit
@@ -15,13 +17,15 @@ import pytest
 import torch
 
 from tissue_image_processing_tpu.ops import morphology as jmorph
+from tissue_image_processing_tpu.ops.filters import band_pass_filter as j_band_pass
 from tissue_image_processing_tpu.ops.filters import gaussian_blur as j_blur
 from tissue_image_processing_tpu.ops.local_threshold import (
     threshold_local_max as j_thr)
 from tissue_image_processing_tpu_torch.ops import blur_cuda
 from tissue_image_processing_tpu_torch.ops import morphology as tmorph
 from tissue_image_processing_tpu_torch.ops.filters import (
-    gaussian_blur as t_blur, gaussian_kernel1d)
+    band_pass_filter as t_band_pass, gaussian_blur as t_blur,
+    gaussian_kernel1d)
 from tissue_image_processing_tpu_torch.ops.local_threshold import (
     threshold_local_max as t_thr)
 
@@ -81,6 +85,41 @@ def test_max_filter_exact(size):
     np.testing.assert_array_equal(
         tmorph.maximum_filter(torch.from_numpy(x), size).numpy(),
         np.asarray(jmorph.maximum_filter(jnp.asarray(x), size)))
+
+
+@pytest.mark.parametrize("fn,args", [
+    ("maximum_filter", (5, "constant", 7)),
+    ("minimum_filter", (3,)),
+    ("minimum_filter", ((3, 7), "constant", 40)),
+    ("plus_maximum_filter", ()),
+    ("plus_maximum_filter", (99,)),
+    ("plus_minimum_filter", ()),
+    ("plus_minimum_filter", (99,)),
+])
+def test_min_max_and_plus_filters_exact(fn, args):
+    x = np.random.default_rng(5).integers(0, 90, (2, 33, 29)).astype(np.int32)
+    np.testing.assert_array_equal(
+        getattr(tmorph, fn)(torch.from_numpy(x), *args).numpy(),
+        np.asarray(getattr(jmorph, fn)(jnp.asarray(x), *args)))
+
+
+@pytest.mark.parametrize("fn", ["maximum_filter", "minimum_filter"])
+def test_filters_refuse_other_modes(fn):
+    with pytest.raises(NotImplementedError):
+        getattr(tmorph, fn)(torch.zeros(4, 4), 3, mode="reflect")
+
+
+@pytest.mark.parametrize("shape,low,high", [((96, 80), 1.0, 4.0),
+                                            ((64, 72), 0.5, 2.0),
+                                            ((3, 40, 52), 1.0, 3.0)])
+def test_band_pass_filter_matches_jax(shape, low, high):
+    """Two blurs of values in [0, 1) and their difference: each blur is
+    within two float32 steps of the JAX one (the blur's own tolerance class,
+    XLA fusing the multiply-adds), so the difference is held to 1e-6."""
+    x = np.random.default_rng(6).random(shape).astype(np.float32)
+    want = np.asarray(j_band_pass(jnp.asarray(x), low, high))
+    got = t_band_pass(torch.from_numpy(x), low, high).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
 
 
 @pytest.mark.cuda

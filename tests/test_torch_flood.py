@@ -21,7 +21,6 @@ from scipy import ndimage as ndi
 
 from conftest import make_cell_image
 from tissue_image_processing_tpu_torch.ops import flood_cuda
-from tissue_image_processing_tpu_torch.ops import watershed as tws
 from tissue_image_processing_tpu_torch.utils.synthetic import (
     coil_mask, settle_cases)
 
@@ -29,7 +28,9 @@ from tissue_image_processing_tpu_torch.utils.synthetic import (
 # and with XLA's device threads
 torch.set_num_threads(1)
 
+# both packages' ``ops`` export a function of this module's name
 jws = importlib.import_module("tissue_image_processing_tpu.ops.watershed")
+tws = importlib.import_module("tissue_image_processing_tpu_torch.ops.watershed")
 jfp = importlib.import_module("tissue_image_processing_tpu.ops.flood_pallas")
 
 
@@ -113,6 +114,21 @@ def test_segmentation_batch_matches_jax():
     got = tws.watershed_segmentation_batch(torch.from_numpy(imgs), 0.2, 3.0,
                                            31).numpy()
     assert (got == want).mean() >= 0.995
+
+
+@pytest.mark.parametrize("seed", [4, 6])
+def test_segmentation_one_frame_matches_jax_and_batch(seed):
+    """The one-frame form against JAX's (the batch test's criterion: the
+    blur is not bit-exact) and, exactly, against frame 0 of the batch form
+    on a one-frame batch."""
+    img = make_cell_image(96, 112, n_seeds=14, seed=seed)
+    want = np.asarray(jws.watershed_segmentation(jnp.asarray(img), 0.2, 2.0, 31))
+    got = tws.watershed_segmentation(torch.from_numpy(img), 0.2, 2.0, 31)
+    assert got.dtype == torch.int32
+    assert (got.numpy() == want).mean() >= 0.995
+    batch = tws.watershed_segmentation_batch(torch.from_numpy(img[None]), 0.2,
+                                             2.0, 31)
+    assert torch.equal(got, batch[0])
 
 
 def test_bf_flood_plain_matches_pallas(interpret_pallas):
@@ -305,6 +321,36 @@ def test_settle_mask_plain_matches_jax():
     want = np.asarray(jfp._settle_mask(jnp.asarray(lam)))
     got = flood_cuda.settle_mask_plain(torch.from_numpy(lam)).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+MASK_SHAPES = [(1, 1), (1, 1025), (40, 1), (37, 3), (64, 127), (33, 1025),
+               (9, 128)]
+
+
+def _awkward_lam(shape):
+    """Flood levels with ties everywhere (four values), +inf pixels and
+    whole +inf rows, as the settle mask meets them on stacked frames."""
+    rng = np.random.default_rng(shape[0] * 7919 + shape[1])
+    lam = rng.integers(0, 4, shape).astype(np.float32)
+    lam[rng.random(shape) < 0.15] = np.inf
+    lam[::6] = np.inf
+    return lam
+
+
+@pytest.mark.parametrize("shape", MASK_SHAPES)
+def test_settle_mask_plain_matches_jax_awkward_shapes(shape):
+    lam = _awkward_lam(shape)
+    want = np.asarray(jfp._settle_mask(jnp.asarray(lam)))
+    got = flood_cuda.settle_mask_plain(torch.from_numpy(lam)).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", MASK_SHAPES)
+def test_settle_mask_kernel_matches_plain_awkward_shapes(cuda_device, shape):
+    lam = torch.from_numpy(_awkward_lam(shape)).to(cuda_device)
+    assert torch.equal(flood_cuda.settle_mask(lam),
+                       flood_cuda.settle_mask_plain(lam))
 
 
 def _scan_masks():

@@ -32,7 +32,6 @@ from jax.experimental.pallas import tpu as pltpu
 from tissue_image_processing_tpu.projection import fused as j_fused
 from tissue_image_processing_tpu.projection import surface as j_surface
 from tissue_image_processing_tpu_torch.ops import filters as t_filters
-from tissue_image_processing_tpu_torch.ops import percentile as t_pct
 from tissue_image_processing_tpu_torch.projection import fused as t_fused
 from tissue_image_processing_tpu_torch.projection import surface as t_surface
 
@@ -44,6 +43,8 @@ torch.set_num_threads(1)
 # modules' names, so the modules themselves come through importlib
 j_filters = importlib.import_module("tissue_image_processing_tpu.ops.filters")
 j_pct = importlib.import_module("tissue_image_processing_tpu.ops.percentile")
+t_pct = importlib.import_module(
+    "tissue_image_processing_tpu_torch.ops.percentile")
 
 
 @pytest.fixture
@@ -97,6 +98,23 @@ def test_percentiles_match_jax(shape):
         assert float(got) == want
         assert float(t_pct.percentile(torch.from_numpy(x), q)) == float(
             j_pct.percentile(jnp.asarray(x), q))
+
+
+@pytest.mark.parametrize("q", [0.0, 33.3, 50.0, 95.0, 100.0])
+def test_segment_percentile_matches_jax(q):
+    """Per-segment percentiles, exactly: ids outside [0, 50) are ignored
+    and segments 45-49 have no members (0)."""
+    rng = np.random.default_rng(7)
+    v = (rng.random(5000) * 100).astype(np.float32)
+    seg = rng.integers(-3, 60, 5000).astype(np.int32)
+    seg[(seg >= 45) & (seg < 50)] = 70
+    want = np.asarray(j_pct.segment_percentile(jnp.asarray(v), jnp.asarray(seg),
+                                               50, q))
+    got = t_pct.segment_percentile(torch.from_numpy(v), torch.from_numpy(seg),
+                                   50, q)
+    assert got.dtype == torch.float32 and got.shape == (50,)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert not got[45:].any()
 
 
 def test_masked_percentile_empty_mask_is_zero():

@@ -1,11 +1,15 @@
-"""PyTorch port vs the JAX package: cell tables, drift and tracking.
+"""PyTorch port vs the JAX package: cell tables, contacts, drift and tracking.
 
 On the same labels the cell tables (including the compacted-adjacency
-overflow flag and the exact-scatter path) are bit-identical. The auction and
-``track_movie`` are exact on the same inputs, including a resume from a
-JAX-produced carry converted with ``utils/state.py``; drifts are quantised
-to 1/64 px so running sums are exact in any summation order. Phase
-correlation and the drift chain agree to 1e-4 px.
+overflow flag and the exact-scatter path), the perimeter map, the contact
+matrices (exact and run-length forms, with the overflow flag) and the
+second-order adjacency are bit-identical, as are the type bitmask helpers,
+``CellTable.empty`` and the pandas bridge. The auction, ``track_movie`` and
+the nearest-pixel tracker are exact on the same inputs, including a resume
+from a JAX-produced carry converted with ``utils/state.py``; drifts are
+quantised to 1/64 px so running sums are exact in any summation order. Phase
+correlation, the drift chain, the stage-prior refinement and the local drift
+field agree to 1e-4 px.
 """
 
 import dataclasses
@@ -19,13 +23,20 @@ import torch
 from conftest import make_cell_labels
 from tissue_image_processing_tpu.core import cell_table as jct
 from tissue_image_processing_tpu.core import tracking as jtr
+from tissue_image_processing_tpu.ops import drift as jdr
+from tissue_image_processing_tpu.ops import neighbors as jnb
 from tissue_image_processing_tpu.ops.drift import (
     phase_cross_correlation as j_pcc)
+from tissue_image_processing_tpu.ops.regionprops import (
+    perimeter_map as j_perimeter_map)
 from tissue_image_processing_tpu_torch.core import cell_table as tct
 from tissue_image_processing_tpu_torch.core import tracking as ttr
 from tissue_image_processing_tpu_torch.ops.drift import (
     phase_cross_correlation as t_pcc)
+from tissue_image_processing_tpu_torch.ops import drift as tdr
+from tissue_image_processing_tpu_torch.ops import neighbors as tnb
 from tissue_image_processing_tpu_torch.ops.neighbors import adjacency_overflow
+from tissue_image_processing_tpu_torch.ops.regionprops import perimeter_map
 from tissue_image_processing_tpu_torch.utils.state import (
     cell_table_from_numpy, tracking_state_from_numpy)
 
@@ -168,3 +179,160 @@ def test_phase_correlation_and_drift_chain():
     want = np.asarray(jtr.compute_drift_chain(jnp.asarray(frames)))
     got = ttr.compute_drift_chain(torch.from_numpy(frames)).numpy()
     np.testing.assert_allclose(got, want, atol=1e-4)
+
+
+LABELS = {"cells": make_cell_labels(128, 128, n_seeds=40, seed=3),
+          "stripes": _stripes()}
+
+
+@pytest.mark.parametrize("name", sorted(LABELS))
+def test_perimeter_map_exact(name):
+    lab = LABELS[name]
+    want = np.asarray(j_perimeter_map(jnp.asarray(lab)))
+    got = perimeter_map(torch.from_numpy(lab))
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("name,cap,k", [
+    ("cells", 64, None), ("cells", 64, 192), ("cells", 32, 192),  # > cap
+    ("stripes", 64, None), ("stripes", 64, 4),                    # overflow
+])
+def test_contact_length_matrix_exact(name, cap, k):
+    lab = LABELS[name]
+    if k is None:
+        want = np.asarray(jnb.contact_length_matrix(jnp.asarray(lab), cap))
+        got = tnb.contact_length_matrix(torch.from_numpy(lab), cap)
+    else:
+        want, want_over = jnb.contact_length_matrix_checked(
+            jnp.asarray(lab), cap, compact_k=k)
+        got, got_over = tnb.contact_length_matrix_checked(
+            torch.from_numpy(lab), cap, compact_k=k)
+        assert bool(got_over) == bool(want_over)
+        want = np.asarray(want)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_second_order_adjacency_exact():
+    rng = np.random.default_rng(4)
+    adj = np.asarray(jnb.adjacency_matrix(jnp.asarray(LABELS["cells"]), 64))
+    mid, ok = rng.random(65) < 0.7, rng.random(65) < 0.8
+    want = np.asarray(jnb.second_order_adjacency(
+        jnp.asarray(adj), jnp.asarray(mid), jnp.asarray(ok)))
+    got = tnb.second_order_adjacency(torch.from_numpy(adj.copy()),
+                                     torch.from_numpy(mid), torch.from_numpy(ok))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _shifted_frames():
+    """Four smooth 160 x 192 frames, each shifted by ~(9.4, -7.6) px from
+    the one before (wrapping)."""
+    from scipy import ndimage as ndi
+    base = ndi.gaussian_filter(
+        np.random.default_rng(8).random((160, 192)).astype(np.float32), 2.0)
+    return np.stack([ndi.shift(base, (9.37 * i, -7.61 * i), mode="wrap")
+                     for i in range(4)]).astype(np.float32)
+
+
+def test_calculate_and_refine_drift():
+    frames = _shifted_frames()
+    for sub_pixel in (True, False):
+        want = np.asarray(jdr.calculate_drift(jnp.asarray(frames[0]),
+                                              jnp.asarray(frames[1]), sub_pixel))
+        got = tdr.calculate_drift(torch.from_numpy(frames[0]),
+                                  torch.from_numpy(frames[1]), sub_pixel)
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-4)
+    # stage priors: none, small, negative, and one past the frame (the crop
+    # keeps a shape_quantum overlap)
+    for dy, dx in ((0.0, 0.0), (9.4, -7.6), (-3.2, 2.9), (150.0, 0.0)):
+        want = jdr.refine_drift(frames[0], frames[1], dy, dx)
+        got = tdr.refine_drift(frames[0], frames[1], dy, dx, device="cpu")
+        assert got.dtype == np.float64
+        np.testing.assert_allclose(got, want, atol=1e-4)
+    stage = np.array([[0, 0], [9.4, -7.6], [9.1, -7.2], [10.2, -8.3]])
+    want = jdr.drift_chain_with_stage_priors(frames, stage)
+    got = tdr.drift_chain_with_stage_priors(frames, stage, device="cpu")
+    np.testing.assert_allclose(got, want, atol=1e-4)
+
+
+def test_local_drift_field():
+    from scipy import ndimage as ndi
+    first = ndi.gaussian_filter(
+        np.random.default_rng(9).random((256, 224)).astype(np.float32), 2.0)
+    second = ndi.shift(first, (1.3, -2.2), mode="wrap").astype(np.float32)
+    want = jtr.local_drift_field(jnp.asarray(first), jnp.asarray(second),
+                                 window_size=96, step_size=48)
+    got = ttr.local_drift_field(torch.from_numpy(first),
+                                torch.from_numpy(second),
+                                window_size=96, step_size=48)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-4)
+
+
+def test_track_movie_nearest_pixel_exact():
+    T = 5
+    labs = np.stack([make_cell_labels(96, 96, n_seeds=30, seed=s % 2)
+                     for s in range(T)])
+    tabs = [tct.frame_cellinfo(torch.from_numpy(l), capacity=40) for l in labs]
+    cy = np.stack([t.cy.numpy() for t in tabs])
+    cx = np.stack([t.cx.numpy() for t in tabs])
+    mask = np.stack([t.exists().numpy() for t in tabs])
+    drifts = np.random.default_rng(10).normal(0, 1.0, (T, 2))
+    valid = np.ones(T, bool)
+    valid[2] = False
+    want = jtr.track_movie_nearest_pixel(labs, cy, cx, mask, drifts=drifts,
+                                         frame_valid=valid)
+    got = ttr.track_movie_nearest_pixel(labs, cy, cx, mask, drifts=drifts,
+                                        frame_valid=valid)
+    assert got.dtype == np.int64
+    np.testing.assert_array_equal(got, want)
+    with pytest.raises(NotImplementedError, match="item 5"):
+        ttr.track_movie_nearest_pixel(labs, cy, cx, mask,
+                                      images=labs.astype(np.float32),
+                                      use_flow=True)
+
+
+@pytest.mark.parametrize("type_index", [0, 3, 7, -1, ((1, 2), (0,)), ((), (4,))])
+def test_type_bitmask_exact(type_index):
+    rng = np.random.default_rng(11)
+    ct = rng.integers(0, 256, 300).astype(np.uint8)
+    ct[:5] = jct.INVALID_TYPE_INDEX
+    want = np.asarray(jct.is_positive_for_type(jnp.asarray(ct), type_index))
+    got = tct.is_positive_for_type(torch.from_numpy(ct), type_index)
+    np.testing.assert_array_equal(got.numpy(), want)
+    if isinstance(type_index, int) and type_index >= 0:
+        positive = rng.random(300) < 0.5
+        for pos_j, pos_t in ((jnp.asarray(positive), torch.from_numpy(positive)),
+                             (True, True), (False, False)):
+            want = np.asarray(jct.change_type(jnp.asarray(ct), type_index, pos_j))
+            got = tct.change_type(torch.from_numpy(ct), type_index, pos_t)
+            assert got.dtype == torch.uint8
+            np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_cell_table_empty_capacity_exists():
+    _assert_tables_equal(tct.CellTable.empty(10, 5, device="cpu"),
+                         jct.CellTable.empty(10, 5))
+    lab = make_cell_labels(96, 96, n_seeds=30, seed=2)
+    want = jct.frame_cellinfo(jnp.asarray(lab), capacity=48)
+    got = tct.frame_cellinfo(torch.from_numpy(lab), capacity=48)
+    assert got.capacity == want.capacity == 48
+    np.testing.assert_array_equal(got.exists().numpy(), np.asarray(want.exists()))
+    assert tct.CELL_INFO_COLUMNS == jct.CELL_INFO_COLUMNS
+
+
+@pytest.mark.parametrize("capacity", [None, 40, 60])
+def test_cell_table_pandas_bridge(capacity):
+    pd = pytest.importorskip("pandas")
+    lab = make_cell_labels(96, 96, n_seeds=30, seed=2)
+    want_table = jct.frame_cellinfo(jnp.asarray(lab), capacity=48)
+    df = want_table.to_pandas()
+    pd.testing.assert_frame_equal(
+        tct.frame_cellinfo(torch.from_numpy(lab), capacity=48).to_pandas(), df)
+    want = jct.CellTable.from_pandas(df, capacity=capacity, max_neighbors=8)
+    got = tct.CellTable.from_pandas(df, capacity=capacity, max_neighbors=8,
+                                    device="cpu")
+    for name, arr in _leaves(want).items():
+        assert getattr(got, name).numpy().dtype == arr.dtype, name
+    _assert_tables_equal(got, want)

@@ -1,24 +1,72 @@
 """Struct-of-tensors cell tables.
 
 Port of ``tissue_image_processing_tpu/core/cell_table.py``: one frame's cells
-as fixed-capacity padded tensors (row i holds segmentation label i+1), and
+as fixed-capacity padded tensors (row i holds segmentation label i+1),
 ``frame_cellinfo_checked``, the table of one label map with the compacted
-adjacency and its overflow flag.
+adjacency and its overflow flag, the reference's type bitmask (uint8, bit k
+= positive for type k, 255 = invalid) and the bridge to its pandas schema.
+``pandas`` is imported only inside ``to_pandas`` / ``from_pandas``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
+from tissue_image_processing_tpu_torch._device import resolve_device
 from tissue_image_processing_tpu_torch.ops.neighbors import (
     adjacency_matrix, adjacency_matrix_checked, neighbor_lists)
 from tissue_image_processing_tpu_torch.ops.regionprops import regionprops
 
 __all__ = ["CellTable", "frame_cellinfo", "frame_cellinfo_checked",
-           "stack_tables"]
+           "stack_tables", "is_positive_for_type", "change_type",
+           "CELL_INFO_COLUMNS", "INVALID_TYPE_INDEX"]
+
+INVALID_TYPE_INDEX = 255
+CELL_INFO_COLUMNS = [
+    "area", "perimeter", "label", "cx", "cy", "neighbors", "n_neighbors", "valid",
+    "type", "bounding_box_min_row", "bounding_box_min_col", "bounding_box_max_row",
+    "bounding_box_max_col", "empty_cell",
+]
+_BBOX_COLUMNS = ["bounding_box_min_row", "bounding_box_min_col",
+                 "bounding_box_max_row", "bounding_box_max_col"]
+
+
+def is_positive_for_type(cell_type: torch.Tensor, type_index) -> torch.Tensor:
+    """Bitmask type query (reference ``is_positive_for_type``): ``type_index``
+    is an int or a (positive list, negative list) tuple; invalid cells (255)
+    are never positive."""
+    cell_type = torch.as_tensor(cell_type)
+    if isinstance(type_index, tuple):
+        pos_types, neg_types = type_index
+        res = torch.ones(cell_type.shape, dtype=torch.bool,
+                         device=cell_type.device)
+        for t in pos_types:
+            res = res & is_positive_for_type(cell_type, t)
+        for t in neg_types:
+            res = res & ~is_positive_for_type(cell_type, t)
+        return res
+    if type_index < 0:
+        return torch.zeros(cell_type.shape, dtype=torch.bool,
+                           device=cell_type.device)
+    ct = cell_type.to(torch.uint8)
+    bit = 1 << type_index
+    return ((ct & bit) == bit) & (ct != INVALID_TYPE_INDEX)
+
+
+def change_type(current_type: torch.Tensor, type_index: int,
+                is_positive) -> torch.Tensor:
+    """Set (``is_positive``) or clear one type bit; invalid cells become
+    valid first (reference ``change_type``)."""
+    ct = torch.as_tensor(current_type).to(torch.uint8)
+    ct = torch.where(ct == INVALID_TYPE_INDEX, torch.zeros_like(ct), ct)
+    bit = torch.tensor(1 << type_index, dtype=torch.uint8, device=ct.device)
+    cleared = ct & ~bit
+    return torch.where(torch.as_tensor(is_positive, device=ct.device),
+                       cleared | bit, cleared)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,8 +86,94 @@ class CellTable:
     neighbors: torch.Tensor     # (..., K) i32 segmentation labels, 0-padded
     n_neighbors: torch.Tensor   # i32
 
+    @property
+    def capacity(self) -> int:
+        return self.area.shape[-1]
+
+    def exists(self) -> torch.Tensor:
+        return self.empty_cell == 0
+
     def valid_mask(self) -> torch.Tensor:
         return (self.valid == 1) & (self.empty_cell == 0)
+
+    @classmethod
+    def empty(cls, capacity: int, max_neighbors: int = 64,
+              device: Optional[Union[str, torch.device]] = None) -> "CellTable":
+        """A table of ``capacity`` empty slots on ``device`` (None: the card)."""
+        dev = resolve_device(device)
+
+        def zeros(*shape, dtype=torch.int32):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        return cls(area=zeros(capacity, dtype=torch.float32),
+                   perimeter=zeros(capacity, dtype=torch.float32),
+                   label=zeros(capacity), cx=zeros(capacity, dtype=torch.float32),
+                   cy=zeros(capacity, dtype=torch.float32), valid=zeros(capacity),
+                   type=zeros(capacity, dtype=torch.uint8),
+                   bbox=zeros(capacity, 4),
+                   empty_cell=torch.ones(capacity, dtype=torch.int32, device=dev),
+                   neighbors=zeros(capacity, max_neighbors),
+                   n_neighbors=zeros(capacity))
+
+    def to_pandas(self):
+        """One frame's table as a DataFrame of the reference's schema
+        (neighbours as sets), interoperable with the ``.seg`` pickles the
+        reference writes."""
+        import pandas as pd
+
+        host = self.map(lambda t: t.cpu().numpy())
+        counts = host.n_neighbors
+        neighbor_sets = [set(map(int, host.neighbors[i, :counts[i]]))
+                         for i in range(self.capacity)]
+        cols = {
+            "area": host.area.astype(np.float64),
+            "perimeter": host.perimeter.astype(np.float64),
+            "label": host.label.astype(np.int64),
+            "cx": host.cx.astype(np.float64),
+            "cy": host.cy.astype(np.float64),
+            "neighbors": neighbor_sets,
+            "n_neighbors": counts.astype(np.int64),
+            "valid": host.valid.astype(np.int64),
+            "type": host.type.astype(np.uint8),
+        }
+        for j, col in enumerate(_BBOX_COLUMNS):
+            cols[col] = host.bbox[:, j].astype(np.int64)
+        cols["empty_cell"] = host.empty_cell.astype(np.int64)
+        return pd.DataFrame(cols)
+
+    @classmethod
+    def from_pandas(cls, df, capacity: Optional[int] = None,
+                    max_neighbors: int = 64,
+                    device: Optional[Union[str, torch.device]] = None
+                    ) -> "CellTable":
+        """A table from a DataFrame of the reference's schema: its first
+        ``capacity`` rows (default: all), neighbour sets sorted and cut to
+        ``max_neighbors``; on ``device`` (None: the card)."""
+        dev = resolve_device(device)
+        n = len(df)
+        cap = capacity or n
+        nbrs = np.zeros((cap, max_neighbors), np.int32)
+        counts = np.zeros((cap,), np.int32)
+        for i, s in enumerate(df["neighbors"].tolist()[:cap]):
+            vals = sorted(int(v) for v in s)[:max_neighbors]
+            nbrs[i, :len(vals)] = vals
+            counts[i] = len(vals)
+
+        def put(col, dtype, fill=0):
+            arr = np.full((cap,), fill, dtype)
+            arr[:n] = np.asarray(df[col], dtype)[:cap]
+            return arr
+
+        bbox = np.stack([put(col, np.int32) for col in _BBOX_COLUMNS], 1)
+        fields = dict(
+            area=put("area", np.float32), perimeter=put("perimeter", np.float32),
+            label=put("label", np.int32), cx=put("cx", np.float32),
+            cy=put("cy", np.float32), valid=put("valid", np.int32),
+            type=put("type", np.uint8), bbox=bbox,
+            empty_cell=put("empty_cell", np.int32, fill=1), neighbors=nbrs,
+            n_neighbors=counts)
+        return cls(**{k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                      for k, v in fields.items()})
 
     def map(self, fn: Callable[[torch.Tensor], torch.Tensor]) -> "CellTable":
         """Apply ``fn`` to every field (e.g. slicing or ``.cpu()``)."""

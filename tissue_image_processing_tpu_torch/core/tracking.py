@@ -3,8 +3,10 @@
 Port of ``tissue_image_processing_tpu/core/tracking.py``: trackpy's linking
 (metric sqrt(dy^2 + dx^2 + 0.5 (sqrt a1 - sqrt a2)^2), search_range gate,
 memory) resolved per frame by a forward auction with top-k candidate pruning
-and per-person eps escalation; the drift chain by phase correlation; and the
-host-side adaptive per-cell radii (trackpy's subnet shrinking).
+and per-person eps escalation; the drift chain and the windowed local drift
+field by phase correlation; the host-side adaptive per-cell radii (trackpy's
+subnet shrinking); and the legacy nearest-pixel tracker (host numpy and
+scipy, as in the JAX package).
 
 The JAX ``lax.while_loop``/``lax.scan`` become Python loops and the
 ``segment_*`` reductions ``scatter_reduce``. The arithmetic follows the JAX
@@ -24,7 +26,8 @@ from tissue_image_processing_tpu_torch._numerics import fma_f32
 from tissue_image_processing_tpu_torch.ops.drift import phase_cross_correlation
 
 __all__ = ["TrackingState", "auction_assignment", "link_frames", "track_movie",
-           "compute_drift_chain", "adaptive_effective_ranges"]
+           "track_movie_nearest_pixel", "compute_drift_chain",
+           "local_drift_field", "adaptive_effective_ranges"]
 
 _NEG = float("-inf")
 
@@ -248,6 +251,99 @@ def compute_drift_chain(images: torch.Tensor,
                                      upsample_factor=upsample_factor)
     return torch.cat([torch.zeros(1, 2, dtype=torch.float32,
                                   device=images.device), shifts], 0)
+
+
+def local_drift_field(first: torch.Tensor, second: torch.Tensor,
+                      window_size: int = 700, step_size: int = 100,
+                      upsample_factor: int = 100
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Windowed drift field: overlapping ``window_size`` windows on a
+    ``step_size`` grid, one batched sub-pixel phase correlation over all of
+    them, and each pixel the mean of the shifts of the windows covering it
+    (reference ``fix_one_frame_tracking_using_local_drifts``). The sums are
+    taken window by window in the JAX version's order, so equal shifts give
+    equal maps. Returns (shift_y_map, shift_x_map), float32 of the input
+    shape."""
+    H, W = first.shape
+    ys = list(range(0, max(H - window_size, 0) + 1, step_size)) or [0]
+    xs = list(range(0, max(W - window_size, 0) + 1, step_size)) or [0]
+    wy, wx = min(window_size, H), min(window_size, W)
+    corners = [(y, x) for y in ys for x in xs]
+    tiles1 = torch.stack([first[y:y + wy, x:x + wx] for y, x in corners])
+    tiles2 = torch.stack([second[y:y + wy, x:x + wx] for y, x in corners])
+    shifts = phase_cross_correlation(tiles1, tiles2,
+                                     upsample_factor=upsample_factor)
+    sy = torch.zeros((H, W), dtype=torch.float32, device=first.device)
+    sx = torch.zeros_like(sy)
+    cnt = torch.zeros_like(sy)
+    for i, (y, x) in enumerate(corners):
+        sy[y:y + wy, x:x + wx] += shifts[i, 0]
+        sx[y:y + wy, x:x + wx] += shifts[i, 1]
+        cnt[y:y + wy, x:x + wx] += 1.0
+    cnt = torch.clamp(cnt, min=1.0)
+    return sy / cnt, sx / cnt
+
+
+def track_movie_nearest_pixel(labels_stack: np.ndarray, cy: np.ndarray,
+                              cx: np.ndarray, mask: np.ndarray,
+                              drifts: Optional[np.ndarray] = None,
+                              frame_valid: Optional[np.ndarray] = None,
+                              images: Optional[np.ndarray] = None,
+                              use_flow: bool = False) -> np.ndarray:
+    """Legacy nearest-pixel tracker (reference ``track_cells_iterator``), on
+    the host: each previous-frame centroid, shifted by the drift, samples
+    the 3x3-dilated current label map; a row claimed twice keeps its first
+    claimant, unmatched cells get fresh ids. Arrays: labels_stack (T, H, W)
+    int; cy / cx / mask (T, N) padded per-frame tables. Returns (T, N)
+    int64 track ids.
+
+    ``use_flow=True`` (a dense TV-L1 flow map in place of the global drift)
+    needs ``ops/optical_flow.py``, which the port does not have yet (ROADMAP
+    section 1, item 5), and raises ``NotImplementedError``."""
+    from scipy.ndimage import maximum_filter as ndi_max
+
+    T, N = cy.shape
+    if drifts is None:
+        drifts = np.zeros((T, 2))
+    if frame_valid is None:
+        frame_valid = np.ones((T,), bool)
+    if use_flow and images is None:
+        raise ValueError("use_flow=True requires images")
+    if use_flow:
+        raise NotImplementedError(
+            "use_flow=True needs ops/optical_flow.py (TV-L1), not ported yet "
+            "(ROADMAP section 1, item 5)")
+    ids = np.zeros((T, N), np.int64)
+    first = next((t for t in range(T) if frame_valid[t]), None)
+    if first is None:
+        return ids
+    n0 = int(mask[first].sum())
+    ids[first, mask[first]] = np.arange(1, n0 + 1)
+    next_id = n0 + 1
+    prev = first
+    for t in range(first + 1, T):
+        if not frame_valid[t]:
+            continue
+        dil = ndi_max(labels_stack[t], size=(3, 3), mode="constant")
+        py = np.round(cy[prev] - drifts[t, 0]).astype(int)
+        px = np.round(cx[prev] - drifts[t, 1]).astype(int)
+        H, W = dil.shape
+        ok = mask[prev] & (py >= 0) & (py < H) & (px >= 0) & (px < W)
+        cur_rows = np.full(N, -1)
+        cur_rows[ok] = dil[py[ok], px[ok]] - 1
+        taken_rows = set()
+        for i in np.nonzero(ok & (cur_rows >= 0))[0]:
+            r = int(cur_rows[i])
+            if r in taken_rows or r >= N or not mask[t, r] or ids[t, r] != 0:
+                continue
+            taken_rows.add(r)
+            ids[t, r] = ids[prev, i]
+        fresh = mask[t] & (ids[t] == 0)
+        k = int(fresh.sum())
+        ids[t, fresh] = np.arange(next_id, next_id + k)
+        next_id += k
+        prev = t
+    return ids
 
 
 def adaptive_effective_ranges(cy: np.ndarray, cx: np.ndarray, area: np.ndarray,

@@ -2,7 +2,8 @@
 block reduction and bilinear resizing.
 
 Port of ``tissue_image_processing_tpu/ops/filters.py`` (``gaussian_kernel1d``,
-``gaussian_blur``, ``block_reduce``, ``resize_bilinear``). ``gaussian_blur``
+``gaussian_blur``, ``band_pass_filter``, ``block_reduce``,
+``resize_bilinear``). ``gaussian_blur``
 routes each axis as the JAX version does off the TPU:
 
 - ``fast=True``, sigma >= 6 and the axis longer than 512: a cascade of four
@@ -30,8 +31,8 @@ import torch
 from tissue_image_processing_tpu_torch._device import host_to_device
 from tissue_image_processing_tpu_torch.ops.blur_cuda import blur3d
 
-__all__ = ["gaussian_kernel1d", "gaussian_blur", "block_reduce",
-           "resize_bilinear"]
+__all__ = ["gaussian_kernel1d", "gaussian_blur", "band_pass_filter",
+           "block_reduce", "resize_bilinear"]
 
 # kernels with at least this many taps take the band-matrix product
 _MATMUL_TAP_THRESHOLD = 31
@@ -153,6 +154,18 @@ def gaussian_blur(image: torch.Tensor,
         else:
             pending[axis] = kernel
     return flush(out)
+
+
+def band_pass_filter(image: torch.Tensor, low_sigma: float,
+                     high_sigma: float, truncate: float = 4.0) -> torch.Tensor:
+    """Difference of Gaussians (``skimage.filters.difference_of_gaussians``
+    as the reference uses it): the image blurred with ``low_sigma`` minus the
+    image blurred with ``high_sigma``, both by :func:`gaussian_blur` (so on
+    the card each axis takes ``blur3d`` or the band matrix by its tap
+    count)."""
+    lo = gaussian_blur(image, low_sigma, truncate)
+    hi = gaussian_blur(image, high_sigma, truncate)
+    return lo - hi
 
 
 def block_reduce(image: torch.Tensor, block: Sequence[int],

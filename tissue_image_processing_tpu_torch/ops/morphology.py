@@ -1,9 +1,8 @@
-"""Shifts, the rectangular max filter and flat-footprint grey / binary
-morphology over the trailing two axes.
+"""Shifts, rectangular and plus-shaped max / min filters and flat-footprint
+grey / binary morphology over the trailing two axes.
 
-Port of ``tissue_image_processing_tpu/ops/morphology.py`` (the parts the
-watershed path, the cell tables and the U-Net post-process use). Min and max
-are exact, so these agree with the JAX versions bit for bit. Leading axes are
+Port of ``tissue_image_processing_tpu/ops/morphology.py``. Min and max are
+exact, so these agree with the JAX versions bit for bit. Leading axes are
 batch axes.
 """
 
@@ -11,8 +10,10 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["shift2d", "maximum_filter", "grey_dilation", "grey_erosion",
-           "binary_dilation", "binary_erosion", "binary_closing"]
+__all__ = ["shift2d", "maximum_filter", "minimum_filter",
+           "plus_maximum_filter", "plus_minimum_filter", "grey_dilation",
+           "grey_erosion", "binary_dilation", "binary_erosion",
+           "binary_closing"]
 
 
 def shift2d(x: torch.Tensor, dy: int, dx: int, cval) -> torch.Tensor:
@@ -46,9 +47,40 @@ def _window_reduce(x: torch.Tensor, size, cval, op) -> torch.Tensor:
     return out
 
 
-def maximum_filter(x: torch.Tensor, size=3, cval=0) -> torch.Tensor:
-    """``scipy.ndimage.maximum_filter(x, size, mode='constant', cval=cval)``."""
-    return _window_reduce(x, size, cval, torch.maximum)
+def _constant_mode(mode: str, cval):
+    if mode != "constant":
+        raise NotImplementedError("only constant mode is used by the pipeline")
+    return 0 if cval is None else cval
+
+
+def maximum_filter(x: torch.Tensor, size=3, mode: str = "constant",
+                   cval=None) -> torch.Tensor:
+    """``scipy.ndimage.maximum_filter`` with a rectangular footprint over the
+    trailing two axes; ``mode='constant'`` pads with ``cval`` (default 0)."""
+    return _window_reduce(x, size, _constant_mode(mode, cval), torch.maximum)
+
+
+def minimum_filter(x: torch.Tensor, size=3, mode: str = "constant",
+                   cval=None) -> torch.Tensor:
+    """``scipy.ndimage.minimum_filter``, as :func:`maximum_filter`."""
+    return _window_reduce(x, size, _constant_mode(mode, cval), torch.minimum)
+
+
+def _plus(x: torch.Tensor, cval, op) -> torch.Tensor:
+    n, s = shift2d(x, 1, 0, cval), shift2d(x, -1, 0, cval)
+    e, w = shift2d(x, 0, 1, cval), shift2d(x, 0, -1, cval)
+    return op(op(n, s), op(e, w))
+
+
+def plus_maximum_filter(x: torch.Tensor, cval=0) -> torch.Tensor:
+    """Max over the 4-neighbourhood EXCLUDING the centre pixel (footprint
+    ``[[0,1,0],[1,0,1],[0,1,0]]``), constant padding."""
+    return _plus(x, cval, torch.maximum)
+
+
+def plus_minimum_filter(x: torch.Tensor, cval=0) -> torch.Tensor:
+    """Min over the 4-neighbourhood EXCLUDING the centre (constant padding)."""
+    return _plus(x, cval, torch.minimum)
 
 
 def _extreme(dtype: torch.dtype, largest: bool):

@@ -1,7 +1,7 @@
 """Percentiles on the device, with numpy's linear interpolation.
 
-Port of ``tissue_image_processing_tpu/ops/percentile.py`` (``percentile`` and
-``masked_percentile``) with its size rules: a sort below
+Port of ``tissue_image_processing_tpu/ops/percentile.py`` (``percentile``,
+``masked_percentile`` and ``segment_percentile``) with its size rules: a sort below
 ``_BISECT_MIN_SIZE`` elements, the exact order statistic by integer bisection
 at or above it, and above ``_EXACT_SORT_LIMIT`` elements a subsample of whole
 minor-axis rows (or single elements for narrow arrays) with stride
@@ -17,7 +17,7 @@ import torch
 
 from tissue_image_processing_tpu_torch._numerics import fma_f32
 
-__all__ = ["percentile", "masked_percentile"]
+__all__ = ["percentile", "masked_percentile", "segment_percentile"]
 
 # the JAX package's size rules (ops/percentile.py there)
 _EXACT_SORT_LIMIT = 1 << 22
@@ -99,3 +99,34 @@ def percentile(x: torch.Tensor, q) -> torch.Tensor:
     frac = float(pos - lo)
     v_lo, v_hi = s[min(max(int(lo), 0), n1)], s[min(max(int(hi), 0), n1)]
     return fma_f32(v_hi, frac, v_lo * float(np.float32(1.0) - np.float32(frac)))
+
+
+def segment_percentile(values: torch.Tensor, segment_ids: torch.Tensor,
+                       num_segments: int, q: float) -> torch.Tensor:
+    """Percentile ``q`` of ``values[segment_ids == s]`` for every segment
+    ``s`` in ``[0, num_segments)`` (linear interpolation), a float32
+    (num_segments,) tensor. Sorts the (segment, value) pairs once (by value,
+    then stably by segment) and interpolates each segment from its start
+    offset and count. Entries outside ``[0, num_segments)`` are ignored;
+    segments with no members give 0."""
+    v = values.to(torch.float32).reshape(-1)
+    seg = segment_ids.reshape(-1).to(torch.int64)
+    valid = (seg >= 0) & (seg < num_segments)
+    seg = torch.where(valid, seg, num_segments)  # a trash segment
+    order_v = torch.sort(v, stable=True).indices
+    seg_v, v_v = seg[order_v], v[order_v]
+    v_sorted = v_v[torch.sort(seg_v, stable=True).indices]
+    counts = torch.bincount(seg, minlength=num_segments + 1)[:num_segments]
+    starts = (torch.cumsum(counts, 0) - counts).to(torch.int32)
+    # q / 100 in double, then rounded to float32 with the product, as XLA
+    # takes the weakly typed Python constant
+    pos = torch.clamp_min(counts - 1, 0).to(torch.float32) * float(
+        np.float32(q / 100.0))
+    lo = torch.floor(pos).to(torch.int32)
+    hi = torch.ceil(pos).to(torch.int32)
+    frac = pos - lo.to(torch.float32)
+    n_total = max(v.shape[0] - 1, 0)
+    lo_idx = torch.clamp(starts + lo, 0, n_total).long()
+    hi_idx = torch.clamp(starts + hi, 0, n_total).long()
+    val = v_sorted[lo_idx] * (1.0 - frac) + v_sorted[hi_idx] * frac
+    return torch.where(counts > 0, val, torch.zeros_like(val))

@@ -18,7 +18,7 @@ import torch
 from tissue_image_processing_tpu_torch._numerics import fma_f32
 from tissue_image_processing_tpu_torch.ops.morphology import shift2d
 
-__all__ = ["regionprops", "perimeter_codes"]
+__all__ = ["regionprops", "perimeter_map", "perimeter_codes"]
 
 _NBRS4 = [(1, 0), (-1, 0), (0, 1), (0, -1)]
 _DIAG4 = [(1, 1), (1, -1), (-1, 1), (-1, -1)]
@@ -52,6 +52,17 @@ def perimeter_codes(labels: torch.Tensor) -> torch.Tensor:
         nb = shift2d(border, -dy, -dx, False) & (shift2d(lab, -dy, -dx, -1) == lab)
         code = code + 10 * nb.to(torch.int32)
     return torch.where(border, code, 0)
+
+
+def perimeter_map(labels: torch.Tensor) -> torch.Tensor:
+    """Per-pixel perimeter contribution (float32); its sum over a label's
+    pixels is that region's skimage perimeter. Every weight is (a + b*sqrt2)
+    / 2 with a, b in {0, 1, 2}, so b*sqrt2 and the halving are exact and the
+    map equals the JAX version's bit for bit."""
+    code = torch.clamp(perimeter_codes(labels), 0, 49).to(torch.int64)
+    a, b = _perimeter_tables(labels.device)
+    return (a[code].to(torch.float32)
+            + b[code].to(torch.float32) * _SQRT2) / 2.0
 
 
 def regionprops(labels: torch.Tensor, num_labels: int) -> Dict[str, torch.Tensor]:

@@ -32,7 +32,8 @@ from tissue_image_processing_tpu_torch.ops.local_threshold import (
 from tissue_image_processing_tpu_torch.ops.morphology import shift2d
 
 __all__ = ["minima_candidates", "regional_minima_labels", "stack_frames",
-           "watershed", "watershed_batch", "watershed_segmentation_batch"]
+           "watershed", "watershed_batch", "watershed_segmentation",
+           "watershed_segmentation_batch"]
 
 _NBRS4 = [(1, 0), (-1, 0), (0, 1), (0, -1)]
 _INF = float("inf")
@@ -231,6 +232,22 @@ def _preprocess(images: torch.Tensor, imgthresh: float, std: float,
     thr = imgthresh * threshold_local_max(img, block_size)
     seg = torch.where(img < thr, 0.0, img)
     return gaussian_blur(seg, (0.0, float(std), float(std)))
+
+
+def watershed_segmentation(image: torch.Tensor, imgthresh: float, std: float,
+                           block_size: int) -> torch.Tensor:
+    """The reference's ``watershed_segmentation`` on one (H, W) frame:
+    local-max threshold, dim pixels to 0, Gaussian blur, then the watershed
+    with lines. On the card: one ``blur3d`` launch, the flood's five (BF 1,
+    CC 2, settle mask 1, settle 1). Equals frame 0 of
+    :func:`watershed_segmentation_batch` on a one-frame batch."""
+    if image.dim() != 2:
+        raise ValueError(f"watershed_segmentation takes a 2-D image, got "
+                         f"{tuple(image.shape)}")
+    img = image.to(torch.float32)
+    thr = imgthresh * threshold_local_max(img, block_size)
+    seg = torch.where(img < thr, 0.0, img)
+    return watershed(gaussian_blur(seg, float(std)), watershed_line=True)
 
 
 def watershed_segmentation_batch(images: torch.Tensor, imgthresh: float,

@@ -9,7 +9,8 @@ other tuning constants.
         score b1,SC_MIN_BLOCKS=1 z16,SC_ZCHUNK=16
     python3 -m tissue_image_processing_tpu_torch.utils.kernel_variants \\
         blur y32,BT_Y=32 c4,BZ_CHUNK=4
-    PYTHONPATH=<tree> python3 <this file> wrappers   # <tree>'s kernels as built
+    python3 -m tissue_image_processing_tpu_torch.utils.kernel_variants \
+        wrappers          # from any tree's root: its kernels as built
 
 Needs one CUDA card and ``nvcc``; run from the repository root (the inputs
 are those of ``chip_smoke.py``). Each argument after the kernel's name is a
@@ -28,6 +29,7 @@ spent in the z sums, in their pass and at the barrier.
 from __future__ import annotations
 
 import ctypes
+import importlib
 import re
 import subprocess
 import sys
@@ -37,9 +39,11 @@ import torch
 
 from tissue_image_processing_tpu_torch import _device
 from tissue_image_processing_tpu_torch.ops import blur_cuda, flood_cuda
-from tissue_image_processing_tpu_torch.ops import watershed as ws
 from tissue_image_processing_tpu_torch.projection import fused
 from tissue_image_processing_tpu_torch.utils.synthetic import make_movie
+
+# ``ops`` exports a function of this module's name
+ws = importlib.import_module("tissue_image_processing_tpu_torch.ops.watershed")
 
 # (text in flood.cu that occurs once, what takes its place) for ``counters``
 _TICK = "{long long n_ = clock64(); prof[%d] += n_ - pc; pc = n_;}"
@@ -306,23 +310,30 @@ def tune_blur(specs) -> None:
 
 
 def time_wrappers(_specs) -> None:
-    """The score pass and the blur at their main-path shapes through the
-    wrappers of whichever package is imported, built as it stands: events
-    around calls and the device time without launch gaps. Runs against
-    another tree's package with ``PYTHONPATH=<tree>`` and this file's path,
-    e.g. a parent commit unpacked with ``git archive``."""
+    """The score pass, the blur and the settle mask at their main-path shapes
+    through the wrappers of whichever package is imported, built as it
+    stands: events around calls and the device time without launch gaps.
+    Run it with ``-m`` from the root of the tree to time (e.g. a parent
+    commit unpacked with ``git archive``): the settle mask's inputs come
+    from that tree's ``chip_smoke.py``."""
     from tissue_image_processing_tpu_torch.ops.filters import gaussian_kernel1d
 
     ref, p95 = _score_input()
     small = fused.score_pass(ref, p95)
     seg = _pre_blur_input()
     k25, k5, one = gaussian_kernel1d(3.0), gaussian_kernel1d(0.5), (1.0,)
+    lam = settle_inputs()
+    ws_lam, unet_lam = lam["watershed"][0], lam["unet"][0]
     calls = {
         "proj_score (30, 1024, 1024)": lambda: fused.score_pass(ref, p95),
         "blur3d (2, 1024, 1024) taps (1, 25, 25)":
             lambda: blur_cuda.blur3d(seg, one, k25, k25),
         "blur3d (30, 256, 256) taps (5, 1, 1)":
-            lambda: blur_cuda.blur3d(small, k5, one, one)}
+            lambda: blur_cuda.blur3d(small, k5, one, one),
+        f"settle_mask {tuple(ws_lam.shape)}":
+            lambda: flood_cuda.settle_mask(ws_lam),
+        f"settle_mask {tuple(unet_lam.shape)} (U-Net input)":
+            lambda: flood_cuda.settle_mask(unet_lam)}
     for name, fn in calls.items():
         try:  # a wrapper that copies its taps each call may refuse capture
             device = f"{graph_ms(fn):.4f} ms"
