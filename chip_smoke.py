@@ -32,9 +32,14 @@ Phases (any failure exits non-zero; no phase catches and continues):
    negative seeds, shapes no tile divides and below one tile); the project
    pass also with ``atoh_shift``, with the airyscan offset, on a ragged
    stack and on a z-map with a full-range step (every plane admitted).
-   The blur, the diffusions, the component minimum, the settle mask, the
-   settle (labels AND arrival stamps) and both projection passes bit for
-   bit; times are the median of
+   The int8 U-Net's conv kernel (``conv3x3_s8``) at every 3x3 conv shape of
+   the depth-3, 128-filter network on eight 1024^2 frames, the int8 main
+   path's batch (single and split forms, Cin = 2 included), against its
+   plain version and a
+   ``torch._int_mm`` route, timed beside cuDNN's bfloat16 conv of the same
+   shape. The blur, the diffusions, the component minimum, the settle mask, the
+   settle (labels AND arrival stamps), both projection passes and the int8
+   conv bit for bit; times are the median of
    five repeats of a CUDA-event bracket, the redesigned kernels' with their
    spread, and for the score pass, the blur and the settle mask also the
    device time of calls replayed from a CUDA graph; then the device time of
@@ -57,23 +62,37 @@ Phases (any failure exits non-zero; no phase catches and continues):
    seeded random weights with non-trivial BatchNorm statistics folded to
    shifts, head bias calibrated so about half the pixels pass the HC
    threshold), each with the launch counters zeroed just before and read
-   just after: every kernel of the path launched (the two projection
+   just after, and the U-Net branch once more with the int8 configuration
+   of the same weights (calibrated on the movie's first projected frame):
+   every kernel of the path launched (the two projection
    kernels once a frame; one launch a diffusion call and a settle call, four
    a component minimum; on the U-Net branch the component minimum, the
    settle and its mask, and NOT the Bellman-Ford flood; the blur's launches
    by shape: the pre-blur once a flood, the score blur once a frame of a
    Z > 1 movie), cells per frame and id
    persistence as expected, ``movie_pipeline_chunked`` (3-frame chunks)
-   identical to the unchunked run; print frames/s and the pipeline's own stage seconds;
+   identical to the unchunked run; print frames/s and the pipeline's own
+   stage seconds; int8 against bfloat16: 14 ``conv3x3_s8`` launches a
+   forward, each of the batch-8 forward's convs equal to the plain version
+   on its inputs, HC-mask agreement >= ``INT8_HC_FLOOR`` (witnessed by the
+   JAX package's own pair: ``tests/int8_witness.py``) and the label Dice
+   (``bench.py``'s accuracy pair);
 6. compare the card with the CPU path of the port on small movies: the
    pre-projected watershed path, the fused projection (2, 8, 128, 128)
    against its plain route on CPU tensors, a Z > 1 pipeline at a shape
    the fused gate refuses (96^2, Z=6), so both take the unfused route, and
    the U-Net branch (probabilities within 0.01, two and a half bfloat16
    steps: the card rounds each conv's output once more; foreground
-   agreement >= 0.99);
+   agreement >= 0.99); full-width Keras weight arrays mapped by the loader
+   into a predictor on the card equal to the CPU, tensor for tensor (the
+   file reading needs ``h5py``, which the card's machine lacks); ``train_unet``
+   with the reference recipe (depth 2, 128 filters, batch 32, 256^2,
+   bfloat16) for 10 steps (steps/s, finite loss) and one float32 step on the
+   card against the CPU;
 7. print the kernel table as one JSON object (launches from the Z=30
-   watershed run, the component minimum's from the U-Net run, and each
+   watershed run, the component minimum's from the U-Net run, the int8
+   conv's from the int8 U-Net run — its times summed over one forward's 14
+   convs at B = 8, with each shape under ``by_shape`` — and each
    kernel's launches by function of phase 3), then the
    card's line, and
    as the last line ``{"ok": true, "device": {...}}``.
@@ -98,6 +117,7 @@ KERNEL_SOURCE = {
     "proj_score": "tissue_image_processing_tpu_torch/csrc/projection.cu",
     "proj_project": "tissue_image_processing_tpu_torch/csrc/projection.cu",
     "cc_scan": "tissue_image_processing_tpu_torch/csrc/cc_scan.cu",
+    "conv3x3_s8": "tissue_image_processing_tpu_torch/csrc/conv_s8.cu",
 }
 FLOOD_SOURCE = "tissue_image_processing_tpu_torch/csrc/flood.cu"
 REPLACES = {
@@ -109,9 +129,11 @@ REPLACES = {
     "proj_score": "tissue_image_processing_tpu/projection/fused.py:147",
     "proj_project": "tissue_image_processing_tpu/projection/fused.py:274",
     "cc_scan": "tissue_image_processing_tpu/ops/flood_pallas.py:697",
+    # an XLA int8 convolution in the JAX package, not a Pallas kernel
+    "conv3x3_s8": "tissue_image_processing_tpu/models/quant.py:65",
 }
 KERNELS = ("blur3d", "diffusion_bf", "diffusion_cc", "settle_mask", "settle",
-           "proj_score", "proj_project", "cc_scan")
+           "proj_score", "proj_project", "cc_scan", "conv3x3_s8")
 PROJECTION_KERNELS = ("proj_score", "proj_project")
 WATERSHED_KERNELS = ("blur3d", "diffusion_bf", "diffusion_cc", "settle_mask",
                      "settle")
@@ -925,35 +947,189 @@ def check_pipeline(card: str, movie):
     return launches, by_shape
 
 
+INT8_OPS_PER_S = 1979e12       # H100 SXM dense int8 tensor-core rate
+INT8_HC_FLOOR = 0.96   # int8 vs bfloat16 HC agreement: check_int8_pipeline
+# every 3x3 conv of the depth-3, 128-filter U-Net on a 1024^2 input: (side,
+# input channels, output channels, skip channels of a split conv), with how
+# many times a forward runs it
+UNET_CONVS = (
+    ((1024, 2, 128, 0), 1), ((1024, 128, 128, 0), 2), ((512, 128, 256, 0), 1),
+    ((512, 256, 256, 0), 2), ((256, 256, 512, 0), 1), ((256, 512, 512, 0), 2),
+    ((128, 512, 1024, 0), 1), ((128, 1024, 1024, 0), 1),
+    ((256, 512, 512, 512), 1), ((512, 256, 256, 256), 1),
+    ((1024, 128, 128, 128), 1))
+
+
+def int_mm_route(x, skip, wq, wscale, bias, shift, s0, s1, so):
+    """One library route to ``conv3x3_s8``'s function: the int32 sums by
+    ``torch._int_mm`` over an im2col of the int8 input(s) (K padded to a
+    multiple of 8), then the same float32 epilogue as the plain version."""
+    import torch
+    import torch.nn.functional as F
+
+    from tissue_image_processing_tpu_torch.ops.conv_s8_cuda import exact_div
+
+    def sums(t, w):
+        B, H, W, C = t.shape
+        tp = F.pad(t, (0, 0, 1, 1, 1, 1))
+        cols = torch.cat([tp[:, dy:dy + H, dx:dx + W] for dy in range(3)
+                          for dx in range(3)], dim=-1).reshape(B * H * W, 9 * C)
+        wk = w.permute(2, 3, 1, 0).reshape(9 * C, -1)
+        pad = -(9 * C) % 8
+        if pad:
+            cols, wk = F.pad(cols, (0, pad)), F.pad(wk, (0, 0, 0, pad))
+        return torch._int_mm(cols, wk.contiguous()).reshape(B, H, W, -1)
+
+    cu = x.shape[-1]
+    acc = sums(x, wq[:, :cu]).to(torch.float32)
+    a0, q = exact_div(s0, 127.0), exact_div(127.0, so)
+    if skip is None:
+        y = acc * (wscale * a0) + bias
+    else:
+        y = (acc * a0 + sums(skip, wq[:, cu:]).to(torch.float32)
+             * exact_div(s1, 127.0)) * wscale + bias
+    y = torch.clamp_min(y, 0.0) + shift
+    return torch.round(torch.clamp(y * q, -127.0, 127.0)).to(torch.int8)
+
+
+def plain_in_slices(x, wq, wscale, bias, shift, x_scale, out_scale,
+                    skip=None, skip_scale=None, step: int = 2):
+    """``conv3x3_s8_plain`` over ``step`` frames at a time: its float64 sums
+    of a batch-8 1024^2 conv would take tens of GiB, and the frames of a
+    batch are independent, so the concatenation is the whole batch's
+    result."""
+    import torch
+
+    from tissue_image_processing_tpu_torch.ops.conv_s8_cuda import (
+        conv3x3_s8_plain)
+
+    return torch.cat([conv3x3_s8_plain(
+        x[i:i + step], wq, wscale, bias, shift, x_scale, out_scale,
+        skip=None if skip is None else skip[i:i + step], skip_scale=skip_scale)
+        for i in range(0, x.shape[0], step)])
+
+
+def check_conv_s8(card: str, B: int = 8):
+    """The int8 conv kernel against its plain version, bit for bit, at every
+    3x3 conv shape of the depth-3, 128-filter U-Net on B 1024^2 frames, the
+    shapes of the int8 main path's batch-8 forward (random int8 inputs and
+    weights, scales that spread the outputs over the int8 range), two runs
+    equal; its device time by CUDA-graph replay, the plain version's (two
+    frames at a time), the ``torch._int_mm`` route's (equal to the kernel,
+    checked) and cuDNN's bfloat16 conv of the same shape; the bound.
+    Returns the kernel row: sums over one forward's 14 convs, and the
+    shapes."""
+    import torch
+    import torch.nn.functional as F
+
+    from tissue_image_processing_tpu_torch.ops.conv_s8_cuda import (
+        conv3x3_s8, packed_pair)
+    from tissue_image_processing_tpu_torch.utils.kernel_variants import graph_ms
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    dev = torch.device("cuda")
+    total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, library_bf16_ms=0.0,
+                 bound_ms=0.0, ops=0.0, nbytes=0.0)
+    err, shapes = 0.0, []
+    for (side, cin, cout, cs), times in UNET_CONVS:
+        def i8(*shape):
+            return torch.randint(-127, 128, shape, generator=gen, device=dev,
+                                 dtype=torch.int8)
+
+        x = i8(B, side, side, cin)
+        skip = i8(B, side, side, cs) if cs else None
+        wq = i8(cout, cin + cs, 3, 3)
+        K = 9 * (cin + cs)
+        # acc std ~ sqrt(K) * 127^2 / 3: scales that put y at ~half the range
+        wscale = (0.5 + torch.rand(cout, generator=gen, device=dev)) * (
+            127.0 / (2 * K ** 0.5 * 127 ** 2 / 3))
+        bias = 0.1 * torch.randn(cout, generator=gen, device=dev)
+        shift = 0.1 * torch.randn(cout, generator=gen, device=dev)
+        s0, s1, so = (torch.tensor(v, device=dev) for v in (1.0, 1.3, 1.0))
+        args = (x, wq, wscale, bias, shift, s0, so)
+        kw = dict(skip=skip, skip_scale=s1 if cs else None)
+        packed = packed_pair(wq, cin if cs else None)
+        got = conv3x3_s8(*args, packed=packed, **kw)
+        want = plain_in_slices(*args, **kw)
+        assert torch.equal(got, want), f"conv3x3_s8 {side} {cin}+{cs}->{cout}"
+        err = max(err, max_abs_err(got, want))
+        assert torch.equal(conv3x3_s8(*args, packed=packed, **kw), got), \
+            "conv3x3_s8: two runs differ"
+        lib = int_mm_route(x, skip, wq, wscale, bias, shift, s0, s1, so)
+        assert torch.equal(lib, want), "the _int_mm route disagrees"
+        levels = len(torch.unique(got))
+        assert levels > 100, f"outputs saturated or empty: {levels} levels"
+        xb = (x if skip is None else torch.cat([x, skip], -1)).permute(
+            0, 3, 1, 2).to(torch.bfloat16)
+        wb = wq.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        row = dict(
+            shape=[B, side, side, cin, cs, cout], per_forward=times,
+            device_ms=graph_ms(lambda: conv3x3_s8(*args, packed=packed, **kw),
+                               reps=5),
+            plain_ms=cuda_ms(lambda: plain_in_slices(*args, **kw), 1),
+            library_ms=cuda_ms(lambda: int_mm_route(x, skip, wq, wscale, bias,
+                                                    shift, s0, s1, so), 2),
+            library_bf16_ms=cuda_ms(lambda: F.conv2d(xb, wb, padding=1), 5))
+        ops = 2.0 * B * side * side * K * cout
+        nbytes = B * side * side * (cin + cs + cout) + K * cout + 12 * cout
+        row["bound_ms"], row["bound_by"] = bound_int8(nbytes, ops)
+        row["tops"] = ops / row["device_ms"] / 1e9
+        shapes.append(row)
+        for k in ("plain_ms", "library_ms", "library_bf16_ms", "bound_ms"):
+            total[k] += times * row[k]
+        total["ms"] += times * row["device_ms"]
+        total["ops"] += times * ops
+        total["nbytes"] += times * nbytes
+        print(f"conv3x3_s8 B={B} {side}^2 {cin}{'+' + str(cs) if cs else ''}"
+              f"->{cout}: bit-exact vs plain and the _int_mm route, two runs "
+              f"equal, {levels} output levels; device {row['device_ms']:.4f} ms"
+              f" ({row['tops']:.1f} TOP/s), plain {row['plain_ms']:.4f}, "
+              f"_int_mm route {row['library_ms']:.4f}, cuDNN bf16 "
+              f"{row['library_bf16_ms']:.4f}, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}) on {card}")
+        del x, skip, got, want, lib, xb
+    total_bound = bound_int8(total["nbytes"], total["ops"])
+    print(f"conv3x3_s8, one forward's 14 convs at B={B}: device "
+          f"{total['ms']:.4f} ms ({total['ops'] / total['ms'] / 1e9:.1f} "
+          f"TOP/s), plain {total['plain_ms']:.4f}, _int_mm route "
+          f"{total['library_ms']:.4f}, cuDNN bf16 {total['library_bf16_ms']:.4f},"
+          f" bound {total_bound[0]:.4f} ms ({total_bound[1]})")
+    return dict(err=err, ms=total["ms"], device_ms=total["ms"],
+                plain_ms=total["plain_ms"], bound=total_bound,
+                library_ms=total["library_ms"],
+                library_bf16_ms=total["library_bf16_ms"], by_shape=shapes)
+
+
+def bound_int8(nbytes: float, nops: float):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / INT8_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def random_unet_config(frame, depth: int, base_filters: int, batch: int,
-                       seed: int = 0, share: float = 0.5):
+                       seed: int = 0, share: float = 0.5,
+                       quantized: bool = False):
     """``movie_pipeline(unet=...)`` configuration with seeded random weights:
     he / lecun-normal convs, BatchNorm scales, biases and running statistics
     drawn away from the identity and folded to shifts by the predictor, and
     the head bias set from one forward of ``frame`` ((C, Z, Y, X), projected
     first when Z > 1) so that ``share`` of its pixels pass the 0.1 HC
     threshold — random logits would else pass everywhere or nowhere and the
-    flood be trivial. Returns (config, share measured after calibration)."""
+    flood be trivial. Returns (config, share measured after calibration);
+    with ``quantized`` also the int8 configuration of the same weights, its
+    activation scales calibrated on that projected frame
+    (``SegmentationPredictor(quantize=True).calibrate``)."""
     import torch
 
     from tissue_image_processing_tpu_torch.models.predictor import (
         SegmentationPredictor, prepare_batch)
-    from tissue_image_processing_tpu_torch.models.unet import build_unet
     from tissue_image_processing_tpu_torch.projection.surface import (
         project_timepoint_auto)
+    from tissue_image_processing_tpu_torch.utils.synthetic import (
+        head_bias_for_share, random_unet)
 
-    gen = torch.Generator().manual_seed(seed)
     Y, X = frame.shape[-2:]
-    model = build_unet((X, Y, 2), depth=depth, base_filters=base_filters,
-                       dtype=torch.bfloat16, generator=gen)
-    ranges = {"weight": (0.5, 1.5), "bias": (-0.2, 0.2),
-              "running_mean": (0.0, 0.5), "running_var": (0.5, 1.5)}
-    with torch.no_grad():
-        for name, buf in model.state_dict().items():
-            leaf = name.rsplit(".", 1)[1]
-            if ".bn" in name and leaf in ranges:
-                lo, hi = ranges[leaf]
-                buf.copy_(lo + (hi - lo) * torch.rand(buf.shape, generator=gen))
+    model = random_unet(depth, base_filters, seed)
     pred = SegmentationPredictor(None, (2, Y, X), depth=depth,
                                  base_filters=base_filters,
                                  variables=model.state_dict())
@@ -962,18 +1138,22 @@ def random_unet_config(frame, depth: int, base_filters: int, batch: int,
     prj = (project_timepoint_auto(stack)[0] if stack.shape[1] > 1
            else stack[:, 0].to(torch.float32))
     x, (px, py) = prepare_batch(prj[None])
-    logit_cut = float(np.log(0.1 / 0.9))
-
-    def logit_gap():
-        p = pred._forward(x)[0, px:, py:].clamp_min(1e-30)
-        return torch.log(p[..., 0]) - torch.log(p[..., 1])
-
-    d = logit_gap().reshape(-1)
-    kth = max(1, int(round((1.0 - share) * d.numel())))
+    delta = head_bias_for_share(pred._forward(x)[0, px:, py:], share)
     with torch.no_grad():
-        pred.model.head.bias[0] += logit_cut - torch.kthvalue(d, kth).values
-    got = float((logit_gap() > logit_cut).float().mean())
-    return pred.pipeline_config(batch=batch), got
+        pred.model.head.bias[0] += delta
+        model.head.bias[0] += delta
+    p = pred._forward(x)[0, px:, py:]
+    got = float((p[..., 0] > 0.1).float().mean())
+    print(f"random U-Net depth {depth}, {base_filters} filters, seed {seed}: "
+          f"head bias + {delta:.6f} for p0 > 0.1 on {share} of the frame")
+    if not quantized:
+        return pred.pipeline_config(batch=batch), got
+    q = SegmentationPredictor(None, (2, Y, X), depth=depth,
+                              base_filters=base_filters,
+                              variables=model.state_dict(), quantize=True)
+    assert q.quantize, "the int8 path did not activate"
+    q.calibrate(prj)
+    return pred.pipeline_config(batch=batch), got, q.pipeline_config(batch=batch)
 
 
 def check_unet_pipeline(card: str, movie):
@@ -987,7 +1167,8 @@ def check_unet_pipeline(card: str, movie):
         movie_pipeline, movie_pipeline_chunked)
 
     T, Z = movie.shape[0], movie.shape[2]
-    cfg, share = random_unet_config(movie[0], depth=3, base_filters=128, batch=8)
+    cfg, share, cfg_q = random_unet_config(movie[0], depth=3, base_filters=128,
+                                           batch=8, quantized=True)
     kw = dict(capacity=2048)
     movie_pipeline(movie, unet=cfg, **kw)  # warm: cuDNN plans at batch 8, allocator
     torch.cuda.synchronize()
@@ -1041,7 +1222,256 @@ def check_unet_pipeline(card: str, movie):
     assert np.abs(got["drifts"] - out["drifts"]).max() <= 1e-4
     print("U-Net pipeline: chunked(3) == unchunked (labels, ids, areas; "
           "drifts to 1e-4)")
-    return launches, by_shape
+    int8_launches = check_int8_pipeline(card, movie, cfg, cfg_q, kw,
+                                        T / secs)
+    return launches, by_shape, int8_launches
+
+
+def best_dice(got, want) -> float:
+    """``bench.py:_best_dice``: the mean over the cells of ``want`` (>= 20
+    px) of the Dice with the ``got`` label that overlaps each most (the
+    smallest such label on a tie; 0 when none does), from one contingency
+    table."""
+    got = np.asarray(got).ravel().astype(np.int64)
+    want = np.asarray(want).ravel().astype(np.int64)
+    nw, ng = np.bincount(want), np.bincount(got)
+    both = (want > 0) & (got > 0)
+    keys, counts = np.unique(want[both] * ng.size + got[both], return_counts=True)
+    wl, gl = keys // ng.size, keys % ng.size
+    order = np.lexsort((gl, -counts, wl))
+    first = order[np.r_[True, wl[order][1:] != wl[order][:-1]]]
+    best = {int(w): (int(g), int(c))
+            for w, g, c in zip(wl[first], gl[first], counts[first])}
+    dices = []
+    for lab in range(1, int(want.max()) + 1):
+        if nw[lab] < 20:
+            continue
+        if lab not in best:
+            dices.append(0.0)
+            continue
+        g, c = best[lab]
+        dices.append(2 * c / (nw[lab] + ng[g]))
+    return float(np.mean(dices)) if dices else 0.0
+
+
+def check_int8_pipeline(card: str, movie, cfg, cfg_q, kw, bf16_fps: float):
+    """The int8 U-Net branch on the same movie and weights as the bfloat16
+    run: ``movie_pipeline(unet={"quantized": True, ...})`` with the launch
+    counters zeroed just before (every 3x3 conv through ``conv3x3_s8``: 14
+    launches for one forward of the 8 frames), frames/s beside the bfloat16
+    run's, chunked == unchunked; the batch-8 int8 forward of the projected
+    frames again with each of its 14 convs held, bit for bit, against the
+    plain version on the same inputs (the main path's shapes and
+    activations); then HC-mask agreement and label Dice int8 vs bfloat16 as
+    ``bench.py`` computes them (post-process of each forward).
+
+    That pair measures the int8 scheme on a random network whose head bias
+    puts half the pixels near the threshold, where the int8 noise flips
+    pixels that a trained network would keep far from it. The JAX
+    package's own pair on the same weights, head-bias rule and frames
+    (``tests/int8_witness.py``, on CPU crops) is the witness for the
+    floor asserted here: agreement >= ``INT8_HC_FLOOR``."""
+    import torch
+
+    import tissue_image_processing_tpu_torch as tipt
+    from tissue_image_processing_tpu_torch.core.pipeline import (
+        _projections, movie_pipeline, movie_pipeline_chunked)
+    from tissue_image_processing_tpu_torch.models.predictor import (
+        prepare_batch, unet_from_config, unet_postprocess_batch)
+
+    T, Z = movie.shape[0], movie.shape[2]
+    movie_pipeline(movie, unet=cfg_q, **kw)   # warm
+    torch.cuda.synchronize()
+    tipt.reset_launches()
+    stages = {}
+    t0 = time.perf_counter()
+    out = movie_pipeline(movie, unet=cfg_q, timings=stages, **kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(tipt.LAUNCHES)
+    missing = [k for k in ("conv3x3_s8",) + UNET_KERNELS + PROJECTION_KERNELS
+               if launches[k] == 0]
+    assert not missing, f"kernels not launched on the int8 U-Net path: {missing}"
+    assert launches["conv3x3_s8"] == 14, launches   # 7 double convs, batch 8
+    assert launches["cc_scan"] == 8 and launches["settle"] == 1, launches
+    labels = out["labels"]
+    cells = [int(l.max()) for l in labels]
+    assert min(cells) > 20, f"trivial flood: cells/frame {cells}"
+    assert np.isfinite(out["drifts"]).all()
+    print(f"movie_pipeline(unet, int8) {T} x 1024^2 Z={Z}: {T / secs:.3f} "
+          f"frames/s ({secs:.3f} s; bfloat16 run {bf16_fps:.3f} frames/s) on "
+          f"{card}; launches {launches}; cells/frame {cells}")
+    print(f"stage seconds (U-Net int8, {T} x 1024^2, Z={Z}): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in stages.items()) + f" on {card}")
+    got = movie_pipeline_chunked(movie, chunk_frames=3, unet=cfg_q, **kw)
+    assert np.array_equal(got["labels"], labels.cpu().numpy()), \
+        "int8 chunked labels differ"
+    assert np.array_equal(got["ids"], out["ids"]), "int8 chunked ids differ"
+
+    dev = torch.device("cuda")
+    prj = _projections(movie, 0, dev)
+    x, (px, py) = prepare_batch(prj)
+    x = x.to(torch.bfloat16)
+    quant = importlib.import_module(
+        "tissue_image_processing_tpu_torch.models.quant")
+    kernel_conv, held = quant.conv3x3_s8, []
+
+    def conv_held(*a, packed=None, **k):
+        got = kernel_conv(*a, packed=packed, **k)
+        want = plain_in_slices(*a, **k)
+        skip = k.get("skip")
+        shape = (a[0].shape[1], a[0].shape[-1], a[1].shape[0],
+                 0 if skip is None else skip.shape[-1])
+        assert torch.equal(got, want), f"int8 forward conv {shape} disagrees"
+        held.append((a[0].shape[0],) + shape)
+        return got
+
+    res, probs = {}, {}
+    with torch.no_grad():
+        for name, c in (("bf16", cfg), ("int8", cfg_q)):
+            model = unet_from_config(c, dev)
+            if name == "int8":
+                quant.conv3x3_s8 = conv_held
+            try:
+                probs[name] = model(x)
+            finally:
+                quant.conv3x3_s8 = kernel_conv
+            preds = probs[name][:, px:, py:, :]
+            res[name] = [t.cpu().numpy() for t in unet_postprocess_batch(preds)]
+    want_shapes = sorted((T, side, cin, cout, cs)
+                         for (side, cin, cout, cs), n in UNET_CONVS
+                         for _ in range(n))
+    got_shapes = sorted((b, side, cin, cout, cs)
+                        for b, side, cin, cout, cs in held)
+    assert got_shapes == want_shapes, f"int8 forward convs {held}"
+    (lab_f, hc_f), (lab_q, hc_q) = res["bf16"], res["int8"]
+    assert np.array_equal(lab_q, labels.cpu().numpy()), \
+        "int8 pipeline labels differ from the int8 forward's"
+    hc_agree = float((hc_f == hc_q).mean())
+    dice = float(np.mean([best_dice(lab_q[i], lab_f[i]) for i in range(T)]))
+    dp = float((probs["int8"] - probs["bf16"]).abs().mean())
+    print(f"int8 forward ({T} x 1024^2): each of its {len(held)} convs equal "
+          f"to the plain version on its inputs, bit for bit; int8 vs "
+          f"bfloat16: mean |dP| {dp:.6f}, HC-mask agreement {hc_agree:.6f}, "
+          f"label Dice {dice:.6f} (floor {INT8_HC_FLOOR}, from the JAX "
+          f"package's pair on the same network: tests/int8_witness.py)")
+    assert hc_agree >= INT8_HC_FLOOR, f"int8 vs bf16 HC agreement {hc_agree}"
+    return launches
+
+
+def check_keras_weights(card: str):
+    """Full-width (depth 3, 128 filters) Keras U-Net weights from a seed
+    (``keras_unet_arrays``, the arrays a Keras h5 file holds) mapped by the
+    loader (``keras_arrays_to_state``, what ``SegmentationPredictor(
+    model_weights_path=...)`` runs after reading the file) into predictors
+    on the card and on the CPU: the loaded state equal tensor for tensor, as
+    loaded (folded: within 1e-6, the fold's float32 arithmetic runs on each
+    device). The file itself is not read here: the card's machine
+    has no ``h5py``; ``tests/test_torch_weights.py`` reads both layouts on
+    the CPU against the JAX loader."""
+    import torch
+
+    from tissue_image_processing_tpu_torch.models.predictor import (
+        SegmentationPredictor)
+    from tissue_image_processing_tpu_torch.models.unet import UNet
+    from tissue_image_processing_tpu_torch.models.weights_io import (
+        keras_arrays_to_state)
+    from tissue_image_processing_tpu_torch.utils.synthetic import (
+        keras_unet_arrays)
+
+    t0 = time.time()
+    state = keras_arrays_to_state(keras_unet_arrays(3, 128, seed=4),
+                                  UNet(depth=3, base_filters=128).state_dict())
+    states = {}
+    for device in ("cuda", "cpu"):
+        for fold in (False, True):
+            pred = SegmentationPredictor(None, (2, 1024, 1024), depth=3,
+                                         base_filters=128, variables=state,
+                                         fold_bn=fold, device=device)
+            states[(device, fold)] = {k: v.cpu() for k, v in
+                                      pred.model.state_dict().items()}
+    secs = time.time() - t0
+    n = sum(v.numel() for k, v in state.items() if "num_batches" not in k)
+    want, got = states[("cpu", False)], states[("cuda", False)]
+    assert sorted(got) == sorted(want) == sorted(state)
+    for k, v in state.items():
+        assert torch.equal(got[k], v) and torch.equal(want[k], v), k
+    # the fold's arithmetic (a = gamma / sqrt(var + eps), w * a, beta - mean
+    # * a) runs on each device: a few float32 ulps apart
+    want, got = states[("cpu", True)], states[("cuda", True)]
+    assert sorted(got) == sorted(want)
+    worst = 0.0
+    for k, v in want.items():
+        if v.is_floating_point():
+            d = float(((got[k] - v).abs() / v.abs().clamp_min(1e-6)).max())
+            worst = max(worst, d)
+            torch.testing.assert_close(got[k], v, rtol=1e-6, atol=1e-6, msg=k)
+    print(f"Keras weights depth 3 / 128 filters ({n} values) mapped by the "
+          f"loader: on the card == on the CPU, tensor for tensor; folded, "
+          f"largest relative difference {worst:.3g}; 4 predictors in "
+          f"{secs:.1f} s on {card}")
+
+
+def check_training(card: str):
+    """``train_unet`` with the reference recipe (depth 2, 128 filters, batch
+    32, 256^2 crops, bfloat16) on synthetic annotated 512^2 frames: 2 warm
+    steps, then 10 timed steps; the loss finite. Then one float32 step of a
+    depth-2, 4-filter net on 32^2 crops on the card and on the CPU from the
+    same seeded weights: the CPU test's tolerances (loss rel 1e-5, gradients
+    1e-4 of their largest magnitude, stepped parameters 2 x lr)."""
+    import torch
+
+    from tissue_image_processing_tpu_torch.models import train
+    from tissue_image_processing_tpu_torch.models.unet import UNet
+    from tissue_image_processing_tpu_torch.utils.synthetic import (
+        training_frames)
+
+    images, labels = training_frames(4, 512, 512, seed=3)
+    kw = dict(batch_size=32, crop=256, depth=2, base_filters=128,
+              dtype=torch.bfloat16, verbose=False)
+    train.train_unet(images, labels, epochs=1, steps_per_epoch=2, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, _, history = train.train_unet(images, labels, epochs=1,
+                                     steps_per_epoch=10, **kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    assert np.isfinite(history["loss"]).all(), history
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"train_unet depth 2, 128 filters, batch 32, 256^2 crops, bfloat16: "
+          f"{10 / secs:.3f} steps/s (10 steps, {secs:.3f} s, crops made on "
+          f"the host included), loss {history['loss'][0]:.4f}, accuracy "
+          f"{history['accuracy'][0]:.4f}, peak memory {peak:.2f} GiB on {card}")
+
+    lr = 1e-5
+    rng = np.random.default_rng(0)
+    x = rng.random((4, 32, 32, 2)).astype(np.float32)
+    y_cls = (x[..., 0] > 0.5).astype(np.float32)
+    y = np.stack([y_cls, 1 - y_cls], -1)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        model = UNet(depth=2, base_filters=4, dropout_rate=0.0)
+        state, tx = train.create_train_state(model, (32, 32, 2), lr, seed=0,
+                                             device=device)
+        state, loss, _ = train.make_train_step(model, tx)(state, x, y)
+        runs[device] = (float(loss), {n: p.grad.cpu() for n, p in
+                                      model.named_parameters()},
+                        {k: v.cpu() for k, v in model.state_dict().items()})
+    (lg, gg, sg), (lc, gc, sc) = runs["cuda"], runs["cpu"]
+    assert abs(lg - lc) <= 1e-5 * abs(lc), (lg, lc)
+    worst = 0.0
+    for k, g in gc.items():
+        scale = float(g.abs().max())
+        rel = float((gg[k] - g).abs().max()) / scale
+        worst = max(worst, rel)
+        assert rel <= 1e-4, (k, rel)
+    for k, v in sc.items():
+        if "num_batches" not in k:
+            torch.testing.assert_close(sg[k], v, rtol=0, atol=2 * lr, msg=k)
+    print(f"float32 train step (depth 2, 4 filters, 4 x 32^2) card vs CPU: "
+          f"loss {lg:.7f} vs {lc:.7f}, worst gradient difference {worst:.3g} "
+          f"of its largest magnitude, parameters within 2 x lr")
 
 
 def check_card_vs_cpu():
@@ -1256,6 +1686,7 @@ def main() -> int:
     frames = _reference_frames(make_movie(T=2, Z=1, H=1024, W=1024, seed=2),
                                0, torch.device("cuda"))
     rows = check_kernels(frames)
+    rows["conv3x3_s8"] = check_conv_s8(card)
     by_caller = check_ported_functions(frames, card)
     t0 = time.time()
     movie_z1 = make_movie(T=8, Z=1, H=1024, W=1024, seed=0).astype(np.uint16)
@@ -1275,8 +1706,11 @@ def main() -> int:
     del stack
     check_pipeline(card, movie_z1)
     launches, blur_shapes = check_pipeline(card, movie_z30)
-    unet_launches, unet_blur_shapes = check_unet_pipeline(card, movie_z30)
+    unet_launches, unet_blur_shapes, int8_launches = check_unet_pipeline(
+        card, movie_z30)
     check_card_vs_cpu()
+    check_keras_weights(card)
+    check_training(card)
 
     table = []
     for name in KERNELS:
@@ -1302,12 +1736,18 @@ def main() -> int:
                 "library_ms_score_blur": b["library_ms"],
                 "launches_by_shape": blur_shapes,
                 "launches_by_shape_unet": unet_blur_shapes})
+        if name == "conv3x3_s8":   # one forward's convs, and each shape
+            at_unet = {"library_bf16_ms": r["library_bf16_ms"],
+                       "by_shape": r["by_shape"]}
         table.append({
             "name": name, "route": "cuda",
             "source": KERNEL_SOURCE.get(name, FLOOD_SOURCE),
             "replaces": REPLACES[name],
-            "launches": (unet_launches if name == "cc_scan" else launches)[name],
+            "launches": (unet_launches if name == "cc_scan" else
+                         int8_launches if name == "conv3x3_s8" else
+                         launches)[name],
             "launches_unet": unet_launches[name],
+            "launches_unet_int8": int8_launches[name],
             "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "library_ms": r["library_ms"], **at_unet,

@@ -11,8 +11,10 @@ airyscan offset) goes through both packages too: each projects every frame
 The U-Net branch (``unet=``) goes through both packages with the same
 weights on Z == 1 and Z > 1 movies; there labels, tables and ids are equal and
 drifts agree to 1e-4 (see ``passthrough_variables`` for why the comparison
-can be exact). Also: the package imports no JAX, and asking for the card
-without one raises.
+can be exact); with ``{"quantized": True}`` both packages run the int8
+forward on the same int8 parameters (from the JAX quantizer), whole and
+chunked, under the watershed branch's criteria. Also: the package imports no
+JAX, and asking for the card without one raises.
 """
 
 import subprocess
@@ -28,8 +30,9 @@ from tissue_image_processing_tpu.core.pipeline import movie_pipeline as j_pipe
 from tissue_image_processing_tpu.ops.brightness import (
     normalize_channel as j_normalize)
 from tissue_image_processing_tpu_torch.models.predictor import (
-    SegmentationPredictor, prepare_batch, unet_from_config)
-from tissue_image_processing_tpu_torch.utils.state import unet_state_from_flax
+    prepare_batch, unet_from_config)
+from tissue_image_processing_tpu_torch.utils.state import (
+    quant_params_from_jax, unet_state_from_flax)
 from tissue_image_processing_tpu_torch.core.pipeline import (
     movie_pipeline as t_pipe, movie_pipeline_chunked as t_pipe_chunked)
 from tissue_image_processing_tpu_torch import resolve_device
@@ -205,24 +208,6 @@ def test_cuda_without_card_raises(movie, monkeypatch):
         resolve_device(None)
     with pytest.raises(RuntimeError):
         t_pipe(movie[:2], **KW)
-
-
-@pytest.mark.parametrize("unet", [
-    {"params": None, "quantized": True},
-    {"params": None, "quantized": True, "depth": 2, "base_filters": 8},
-], ids=["quantized", "quantized_small"])
-def test_unet_later_slices_raise(movie, unet):
-    # the projection and U-Net branches are ported; the int8 path is not
-    with pytest.raises(NotImplementedError):
-        t_pipe(movie[:2], unet=unet, device="cpu", **KW)
-    with pytest.raises(NotImplementedError):
-        t_pipe_chunked(movie[:2], chunk_frames=1, unet=unet, device="cpu", **KW)
-
-
-def test_unet_weights_path_raises():
-    with pytest.raises(NotImplementedError):
-        SegmentationPredictor("unet_weights.h5", (2, 128, 128), depth=2,
-                              base_filters=8, device="cpu")
 
 
 def _zmovie(airyscan: bool):
@@ -479,6 +464,44 @@ def test_unet_batch_size_leaves_results_unchanged(movie, unet_whole):
     np.testing.assert_array_equal(got["ids"], whole["ids"])
     np.testing.assert_array_equal(got["labels"].numpy(),
                                   whole["labels"].numpy())
+
+
+@pytest.fixture(scope="module")
+def quantized_runs(movie):
+    """The pass-through U-Net quantized by the JAX package on the movie's
+    first two normalised frames, as both packages' pipeline configs, and
+    the JAX pipeline's run with it."""
+    from tissue_image_processing_tpu.models.quant import quantize_unet
+
+    variables = passthrough_variables()
+    sample, _ = prepare_batch(torch.from_numpy(movie[:2, :, 0]))
+    qj = jax.device_get(quantize_unet(variables, jnp.asarray(sample.numpy()),
+                                      depth=UNET_DEPTH))
+    common = {"quantized": True, "depth": UNET_DEPTH,
+              "base_filters": UNET_FILTERS, "norm": "shift", "batch": 2}
+    cfg_j = {"params": qj, **common}
+    cfg_t = {"params": quant_params_from_jax(qj), **common}
+    want = j_pipe(jnp.asarray(movie), unet=cfg_j, capacity=KW["capacity"])
+    return cfg_t, want
+
+
+def test_unet_quantized_pipeline_matches_jax(movie, quantized_runs):
+    """``unet={"quantized": True}`` runs the int8 forward (the plain
+    ``conv3x3_s8`` on the CPU) under this file's criteria against the JAX
+    package's quantized pipeline on the same int8 parameters."""
+    cfg_t, want = quantized_runs
+    got = t_pipe(movie, unet=cfg_t, device="cpu", **KW)
+    _assert_matches_jax(got, want)
+    assert min(int(l.max()) for l in got["labels"]) >= 8
+
+
+@pytest.mark.parametrize("chunk", [3, 4])
+def test_unet_quantized_chunked_matches_jax(movie, quantized_runs, chunk):
+    cfg_t, want = quantized_runs
+    got = t_pipe_chunked(movie, chunk_frames=chunk, unet=cfg_t, device="cpu",
+                         **KW)
+    got["labels"] = torch.from_numpy(got["labels"])
+    _assert_matches_jax(got, want)
 
 
 @pytest.mark.cuda

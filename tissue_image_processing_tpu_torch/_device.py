@@ -30,13 +30,14 @@ __all__ = ["LAUNCHES", "BLUR_LAUNCHES", "KERNEL_SOURCES", "resolve_device",
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
-KERNEL_SOURCES = ("blur3d", "flood", "projection", "cc_scan")
+KERNEL_SOURCES = ("blur3d", "flood", "projection", "cc_scan", "conv_s8")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES: Dict[str, int] = {"blur3d": 0, "diffusion_bf": 0,
                             "diffusion_cc": 0, "settle_mask": 0, "settle": 0,
-                            "proj_score": 0, "proj_project": 0, "cc_scan": 0}
+                            "proj_score": 0, "proj_project": 0, "cc_scan": 0,
+                            "conv3x3_s8": 0}
 # blur3d launches by (Z, Y, X, tz, ty, tx)
 BLUR_LAUNCHES: collections.Counter = collections.Counter()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -10,9 +10,10 @@ A Z == 1 movie is pre-projected and skips this.
   frames go through threshold, blur and the row-stacked flood in batches.
 - The U-Net branch (``unet=``) keeps every channel (the model input is the
   (atoh, zo) pair): per-channel 1-99 percentile normalisation, the U-Net
-  forward in bfloat16 on groups of frames, the morphology post-process, and
-  each group's boundary maps through ONE stacked binary flood (zero-set
-  seeds by the segmented-scan kernel, no Bellman-Ford phase). Its labels
+  forward in bfloat16 (or int8, ``quantized``) on groups of frames, the
+  morphology post-process, and each group's boundary maps through ONE
+  stacked binary flood (zero-set seeds by the segmented-scan kernel, no
+  Bellman-Ford phase). Its labels
   live in x-major space while its drift chain runs on the y-major
   projection, with the two drift columns swapped to match.
 
@@ -233,7 +234,9 @@ def movie_pipeline(movie, *, reference_channel: int = 0,
     ``state_dict``, and the static model description ``depth``,
     ``base_filters``, ``norm``, plus ``batch``, the frames per forward and
     stacked flood, default 8); the movie's channels must then be
-    (atoh, zo). ``{"quantized": True}`` raises ``NotImplementedError``.
+    (atoh, zo). With ``"quantized": True`` ``params`` holds the int8
+    parameters (``models/quant.py:quantize_unet``) and the forward is
+    ``unet_int8_apply``'s, its 3x3 convs the ``conv3x3_s8`` kernel.
 
     A ``timings`` dict receives the seconds of each stage (upload, project
     when Z > 1, segment — or normalize, unet and postprocess on the U-Net

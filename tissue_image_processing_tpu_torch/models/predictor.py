@@ -12,13 +12,18 @@ Port of ``tissue_image_processing_tpu/models/predictor.py``:
    (zero-set seeds by the segmented-scan kernel, no Bellman-Ford phase)
    -> (labels, HC mask).
 
-The int8 path (``quantize=True``) and Keras weight files
-(``model_weights_path``) belong to later slices of the port and raise
-``NotImplementedError``; nothing falls back to bfloat16 quietly.
+Weights come as a ``state_dict`` (``variables=``), from a Keras h5 file
+(``model_weights_path``, ``models/weights_io.py``) or from seed 0.
+``quantize=True`` takes the int8 path (``models/quant.py``): its activation
+scales are calibrated by :meth:`SegmentationPredictor.calibrate` or on the
+first batch predicted. As in the JAX package, a BatchNorm that cannot be
+folded (a scale <= 0) keeps the bfloat16 path with a warning: the int8 path
+needs the folded model.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Mapping, Optional, Tuple
 
 import numpy as np
@@ -26,8 +31,12 @@ import torch
 import torch.nn.functional as F
 
 from tissue_image_processing_tpu_torch._device import resolve_device
+from tissue_image_processing_tpu_torch.models.quant import (
+    Int8UNet, quantize_unet)
 from tissue_image_processing_tpu_torch.models.unet import (
     UNet, build_unet, fold_batchnorm)
+from tissue_image_processing_tpu_torch.models.weights_io import (
+    load_keras_unet_weights)
 from tissue_image_processing_tpu_torch.ops.brightness import normalize_channel
 from tissue_image_processing_tpu_torch.ops.morphology import (
     binary_closing, binary_dilation, binary_erosion)
@@ -100,14 +109,15 @@ def _norm_of(state: Mapping) -> str:
     return "shift" if any(k.endswith(".shift0") for k in state) else "none"
 
 
-def unet_from_config(config: Mapping, device: torch.device) -> UNet:
-    """The frozen bfloat16 inference model of a :meth:`SegmentationPredictor.
-    pipeline_config` dictionary (``params`` = a ``UNet`` ``state_dict``, plus
-    ``depth``, ``base_filters``, ``norm``) on ``device``."""
-    if config.get("quantized", False):
-        raise NotImplementedError(
-            "the int8 U-Net path (models/quant.py) is ported in a later slice")
+def unet_from_config(config: Mapping, device: torch.device):
+    """The inference model of a :meth:`SegmentationPredictor.pipeline_config`
+    dictionary on ``device``: with ``quantized`` the int8 forward
+    (``params`` = the int8 parameters of ``quantize_unet``), else the frozen
+    bfloat16 ``UNet`` (``params`` = its ``state_dict``, plus ``depth``,
+    ``base_filters``, ``norm``). Either is called on (B, X, Y, C) input."""
     params = config["params"]
+    if config.get("quantized", False):
+        return Int8UNet(params, config.get("depth", 3), device)
     with torch.device(device):
         model = UNet(depth=config.get("depth", 3),
                      base_filters=config.get("base_filters", 128),
@@ -122,22 +132,15 @@ class SegmentationPredictor:
     both in the reference's transposed (X, Y) space.
 
     ``variables`` is a ``state_dict`` of :class:`UNet` (for example from
-    ``utils.state.unet_state_from_flax``); without one the weights are drawn
-    from seed 0. ``device=None`` is the card."""
+    ``utils.state.unet_state_from_flax``); without one the weights come from
+    the Keras file ``model_weights_path`` or are drawn from seed 0.
+    ``device=None`` is the card."""
 
     def __init__(self, model_weights_path: Optional[str], image_shape,
                  depth: int = 3, base_filters: int = 128,
                  dtype: torch.dtype = torch.bfloat16,
                  variables: Optional[Mapping] = None, fold_bn: bool = True,
                  quantize: bool = False, device=None):
-        if quantize:
-            raise NotImplementedError(
-                "the int8 U-Net path (models/quant.py) is ported in a later "
-                "slice")
-        if model_weights_path:
-            raise NotImplementedError(
-                "Keras weight files (models/weights_io.py) are ported in a "
-                "later slice; pass variables= instead")
         self.device = resolve_device(device)
         sy, sx = find_desired_shape(image_shape[-2], image_shape[-1])
         self.model_shape = (sx, sy, 2)  # x-major like the reference
@@ -146,21 +149,61 @@ class SegmentationPredictor:
             model = build_unet(self.model_shape, depth=depth,
                                base_filters=base_filters, dtype=dtype,
                                generator=torch.Generator().manual_seed(0))
+            if model_weights_path:
+                load_keras_unet_weights(model, model_weights_path)
         else:
             model = UNet(depth=depth, base_filters=base_filters, dtype=dtype,
                          norm=_norm_of(variables),
                          in_channels=self.model_shape[-1])
             model.load_state_dict(variables)
         model = model.to(self.device).eval().requires_grad_(False)
+        folded_ok = False
         if fold_bn:
             folded = fold_batchnorm(model)
             if folded is not None:  # None: a BatchNorm scale <= 0 blocks it
                 model = folded.requires_grad_(False)
+                folded_ok = True
         self.model = model
+        # the int8 path needs the folded (norm="shift") model; its static
+        # activation scales calibrate on the first batch (or calibrate())
+        self.quantize = quantize and folded_ok
+        if quantize and not folded_ok:
+            warnings.warn(
+                "quantize=True requires the folded-BatchNorm form "
+                "(fold_bn=True and all BN gammas > 0); falling back to the "
+                "bf16 path", stacklevel=2)
+        self._qparams = self._int8 = None
+
+    def _set_scales(self, sample: torch.Tensor) -> None:
+        """Fix the int8 activation scales from the (B, X, Y, C) model input
+        ``sample`` and build the int8 forward once for them."""
+        self._qparams = quantize_unet(self.model, sample, depth=self.depth)
+        self._int8 = Int8UNet(self._qparams, self.depth, self.device)
+
+    def calibrate(self, image) -> None:
+        """Fix the int8 activation scales from a representative (C, Y, X)
+        frame (normalised and padded like ``predict``'s input). Call once
+        before ``predict`` when the movie's first frame is not
+        representative: otherwise the first batch predicted sets them for
+        the predictor's lifetime."""
+        if not self.quantize:
+            return
+        self._set_scales(self.prepare_image(image)[0])
 
     def _forward(self, batch: torch.Tensor) -> torch.Tensor:
+        if self.quantize:
+            if self._qparams is None:
+                # static scales: the first batch defines the clip range, so
+                # flag a clearly blank one
+                if float(batch.float().std(correction=0)) < 1e-3:
+                    warnings.warn(
+                        "int8 activation scales are calibrating on a "
+                        "near-constant (blank?) batch; subsequent frames "
+                        "will be clipped. Call calibrate(representative_"
+                        "image) first.", stacklevel=3)
+                self._set_scales(batch)
         with torch.no_grad():
-            return self.model(batch)
+            return (self._int8 if self.quantize else self.model)(batch)
 
     def _prepare(self, images):
         if not isinstance(images, torch.Tensor):
@@ -186,7 +229,17 @@ class SegmentationPredictor:
 
     def pipeline_config(self, batch: int = 8) -> dict:
         """Package this predictor for ``movie_pipeline(unet=...)``: the
-        model's ``state_dict`` plus its static description."""
-        return {"params": self.model.state_dict(), "quantized": False,
+        model's ``state_dict`` (with ``quantize=True`` the int8 parameters,
+        which :meth:`calibrate` must have fixed) plus its static
+        description."""
+        if self.quantize:
+            if self._qparams is None:
+                raise ValueError(
+                    "int8 pipeline config needs calibrated activation scales "
+                    "— call calibrate(representative_image) first")
+            params = self._qparams
+        else:
+            params = self.model.state_dict()
+        return {"params": params, "quantized": self.quantize,
                 "depth": self.depth, "base_filters": self.model.base_filters,
                 "norm": self.model.norm, "batch": batch}

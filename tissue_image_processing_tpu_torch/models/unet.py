@@ -29,8 +29,16 @@ float32 and rounds to bfloat16 once per block. Here:
 With ``dtype=torch.float32`` the convs run in full float32 on both; on the
 card TF32 is switched off around them, so card and CPU can be compared.
 
-The ablation knobs ``up_kind`` and ``row_split`` of the JAX module are not
-ported.
+The JAX module's knobs: ``up_kind="convt"`` (the reference's stride-2
+transposed conv), ``"subpixel"`` (the same map as one 2 x 2 conv to 4f
+channels plus a depth-to-space interleave; ``variables_to_subpixel``
+converts the weights) or ``"resize_conv"`` (nearest 2x resize + 3 x 3 conv,
+not weight-compatible); ``row_split`` evaluates each 3 x 3 conv on row
+slices with one-row halos stacked along the batch, exactly the unsplit conv.
+
+Training. In training mode the BatchNorm normalises with the batch's biased
+variance and updates its running statistics as Flax does (momentum 0.99,
+biased variance; ``nn.BatchNorm2d`` would store the unbiased one).
 """
 
 from __future__ import annotations
@@ -43,9 +51,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["UNet", "DoubleConv", "build_unet", "fold_batchnorm"]
+__all__ = ["UNet", "DoubleConv", "build_unet", "init_unet_", "fold_batchnorm",
+           "fold_convtranspose_kernel", "convtranspose_to_subpixel_params",
+           "variables_to_subpixel"]
 
 _NORMS = ("bn", "shift", "none")
+_UP_KINDS = ("convt", "subpixel", "resize_conv")
 # running-stats BatchNorm of the reference: epsilon 1e-3, Keras momentum 0.99
 _BN_EPS = 1e-3
 _BN_MOMENTUM = 0.01
@@ -67,9 +78,11 @@ def _full_float32_convs(device: torch.device):
 
 
 def _conv(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-          dtype: torch.dtype, transpose: bool = False) -> torch.Tensor:
-    """SAME 3x3 / 1x1 conv, or the stride-2 transposed conv, with operands in
-    ``dtype`` and a float32 result including the bias (module docstring)."""
+          dtype: torch.dtype, transpose: bool = False,
+          padding=None) -> torch.Tensor:
+    """SAME 3x3 / 1x1 conv (or ``padding`` (rows, columns)), or the stride-2
+    transposed conv, with operands in ``dtype`` and a float32 result
+    including the bias (module docstring)."""
     if dtype == torch.float32:
         x, w = x.to(torch.float32), weight
     elif x.device.type == "cuda":
@@ -85,23 +98,71 @@ def _conv(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
             H, W = x.shape[-2:]
             y = F.conv_transpose2d(x, w, stride=2)[..., :2 * H, :2 * W]
         else:
-            y = F.conv2d(x, w, padding=weight.shape[-1] // 2)
+            y = F.conv2d(x, w, padding=(weight.shape[-1] // 2 if padding is None
+                                        else padding))
     # y is this call's own tensor (or a view of it): add the bias in place
     return y.to(torch.float32).add_(bias[None, :, None, None])
+
+
+def _auto_row_split(B: int, H: int) -> int:
+    """The JAX package's row-split factor: the smallest S with B * S >= 8,
+    S dividing H and at least 128 rows a slice, else 1 (1 from B >= 8)."""
+    if B >= 8:
+        return 1
+    for S in range(-(-8 // B), H // 128 + 1):
+        if H % S == 0 and H // S >= 128:
+            return S
+    return 1
+
+
+def _row_split_conv(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                    dtype: torch.dtype, S: int) -> torch.Tensor:
+    """The SAME 3x3 conv of NCHW ``x`` on S row slices, each with a one-row
+    halo from its neighbours (zeros at the outer edges), stacked along the
+    batch: the same sums as the unsplit conv."""
+    B, C, H, W = x.shape
+    h = H // S
+    xs = x.reshape(B, C, S, h, W)
+    zero = x.new_zeros(B, C, 1, 1, W)
+    above = torch.cat([zero, xs[:, :, :-1, -1:]], dim=2)
+    below = torch.cat([xs[:, :, 1:, :1], zero], dim=2)
+    xh = torch.cat([above, xs, below], dim=3)          # (B, C, S, h + 2, W)
+    xh = xh.permute(0, 2, 1, 3, 4).reshape(B * S, C, h + 2, W)
+    y = _conv(xh, weight, bias, dtype, padding=(0, 1))
+    F_ = y.shape[1]
+    return y.reshape(B, S, F_, h, W).permute(0, 2, 1, 3, 4).reshape(B, F_, H, W)
+
+
+def _batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
+    """Training-mode BatchNorm as Flax computes it: normalise with the
+    batch mean and BIASED variance over (N, H, W), and move the running
+    statistics by ``1 - momentum`` (0.01) towards them, the variance biased
+    too."""
+    mean = x.mean(dim=(0, 2, 3))
+    var = ((x * x).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
+    with torch.no_grad():
+        bn.running_mean.mul_(1.0 - bn.momentum).add_(bn.momentum * mean)
+        bn.running_var.mul_(1.0 - bn.momentum).add_(bn.momentum * var)
+        bn.num_batches_tracked.add_(1)
+    scale = bn.weight * torch.rsqrt(var + bn.eps)
+    return ((x - mean[None, :, None, None]) * scale[None, :, None, None]
+            + bn.bias[None, :, None, None])
 
 
 class DoubleConv(nn.Module):
     """Conv3x3 -> ReLU -> norm, twice. ``norm="bn"`` is the reference's
     BatchNorm, ``"shift"`` a per-channel bias in its place (the inference
-    form :func:`fold_batchnorm` produces), ``"none"`` nothing. Takes and
-    returns NCHW tensors; the output is in ``dtype``."""
+    form :func:`fold_batchnorm` produces), ``"none"`` nothing. ``row_split``
+    is 1 (off), S > 1 or -1 (:func:`_auto_row_split` of each call's shape).
+    Takes and returns NCHW tensors; the output is in ``dtype``."""
 
     def __init__(self, in_channels: int, filters: int,
-                 dtype: torch.dtype = torch.float32, norm: str = "bn"):
+                 dtype: torch.dtype = torch.float32, norm: str = "bn",
+                 row_split: int = 1):
         super().__init__()
         if norm not in _NORMS:
             raise ValueError(f"norm must be one of {_NORMS}, got {norm!r}")
-        self.dtype, self.norm = dtype, norm
+        self.dtype, self.norm, self.row_split = dtype, norm, row_split
         for i, cin in enumerate((in_channels, filters)):
             setattr(self, f"conv{i}", nn.Conv2d(cin, filters, 3, padding=1))
             if norm == "bn":
@@ -111,14 +172,44 @@ class DoubleConv(nn.Module):
                 setattr(self, f"shift{i}", nn.Parameter(torch.zeros(filters)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        S = self.row_split
+        if S == -1:
+            S = _auto_row_split(x.shape[0], x.shape[2])
         for i in range(2):
             conv = getattr(self, f"conv{i}")
-            x = torch.relu_(_conv(x, conv.weight, conv.bias, self.dtype))
+            if S > 1 and x.shape[2] % S == 0:
+                y = _row_split_conv(x, conv.weight, conv.bias, self.dtype, S)
+            else:
+                y = _conv(x, conv.weight, conv.bias, self.dtype)
+            x = torch.relu_(y)
             if self.norm == "bn":
-                x = getattr(self, f"bn{i}")(x)
+                bn = getattr(self, f"bn{i}")
+                x = _batch_norm_train(x, bn) if self.training else bn(x)
             elif self.norm == "shift":
                 x = x + getattr(self, f"shift{i}")[None, :, None, None]
         return x.to(self.dtype)
+
+
+class _SubpixelUp(nn.Module):
+    """The stride-2 transposed conv as one 2 x 2 conv over the front-padded
+    half-resolution input to 4f channels, channel (di * 2 + dj) * f + c
+    holding output phase (di, dj) — the JAX package's channel order — then
+    the depth-to-space interleave written out (``F.pixel_shuffle`` expects
+    c * 4 + di * 2 + dj)."""
+
+    def __init__(self, in_channels: int, filters: int):
+        super().__init__()
+        self.filters = filters
+        self.packed = nn.Conv2d(in_channels, 4 * filters, 2)
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        B, _, H, W = x.shape
+        f = self.filters
+        # padding ((1, 0), (1, 0)): one row and column in front
+        y = _conv(F.pad(x, (1, 0, 1, 0)), self.packed.weight, self.packed.bias,
+                  dtype, padding=0).to(dtype)
+        y = y.reshape(B, 2, 2, f, H, W).permute(0, 3, 4, 1, 5, 2)
+        return y.reshape(B, f, 2 * H, 2 * W)
 
 
 class UNet(nn.Module):
@@ -128,26 +219,35 @@ class UNet(nn.Module):
     softmax ``(B, X, Y, num_classes)``; X and Y must be multiples of
     ``2 ** depth``. ``blocks`` holds the 2 * depth + 1 double convs in the
     order the JAX module creates them (down, bottleneck, up), ``ups`` the
-    transposed convs, ``head`` the 1x1 conv."""
+    up-sampling layers (``up_kind``), ``head`` the 1x1 conv."""
 
     def __init__(self, depth: int = 3, base_filters: int = 128,
                  num_classes: int = 2, dropout_rate: float = 0.3,
                  dtype: torch.dtype = torch.float32, norm: str = "bn",
-                 in_channels: int = 2):
+                 in_channels: int = 2, up_kind: str = "convt",
+                 row_split: int = 1):
         super().__init__()
+        if up_kind not in _UP_KINDS:
+            raise ValueError(f"up_kind must be one of {_UP_KINDS}, got {up_kind!r}")
         self.depth, self.base_filters = depth, base_filters
         self.num_classes, self.dropout_rate = num_classes, dropout_rate
         self.dtype, self.norm, self.in_channels = dtype, norm, in_channels
+        self.up_kind, self.row_split = up_kind, row_split
         filters = [base_filters * 2 ** i for i in range(depth)]
         blocks, cin = [], in_channels
         for f in filters:
-            blocks.append(DoubleConv(cin, f, dtype, norm))
+            blocks.append(DoubleConv(cin, f, dtype, norm, row_split))
             cin = f
-        blocks.append(DoubleConv(cin, 2 * cin, dtype, norm))
+        blocks.append(DoubleConv(cin, 2 * cin, dtype, norm, row_split))
         cin, ups = 2 * cin, []
         for f in reversed(filters):
-            ups.append(nn.ConvTranspose2d(cin, f, 3, stride=2))
-            blocks.append(DoubleConv(2 * f, f, dtype, norm))
+            if up_kind == "convt":
+                ups.append(nn.ConvTranspose2d(cin, f, 3, stride=2))
+            elif up_kind == "subpixel":
+                ups.append(_SubpixelUp(cin, f))
+            else:
+                ups.append(nn.Conv2d(cin, f, 3, padding=1))
+            blocks.append(DoubleConv(2 * f, f, dtype, norm, row_split))
             cin = f
         self.blocks = nn.ModuleList(blocks)
         self.ups = nn.ModuleList(ups)
@@ -155,6 +255,17 @@ class UNet(nn.Module):
 
     def _drop(self, x: torch.Tensor) -> torch.Tensor:
         return F.dropout(x, self.dropout_rate, self.training)
+
+    def _up(self, up: nn.Module, x: torch.Tensor) -> torch.Tensor:
+        if self.up_kind == "convt":
+            return _conv(x, up.weight, up.bias, self.dtype,
+                         transpose=True).to(self.dtype)
+        if self.up_kind == "subpixel":
+            return up(x, self.dtype)
+        # nearest 2x resize (output pixel i reads input i // 2), then a SAME
+        # 3 x 3 conv
+        x = x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
+        return _conv(x, up.weight, up.bias, self.dtype).to(self.dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if x.dim() != 4 or x.shape[-1] != self.in_channels:
@@ -171,8 +282,7 @@ class UNet(nn.Module):
             x = self._drop(F.max_pool2d(skip, 2))
         x = self.blocks[self.depth](x)
         for j, up in enumerate(self.ups):
-            x = _conv(x, up.weight, up.bias, self.dtype,
-                      transpose=True).to(self.dtype)
+            x = self._up(up, x)
             x = self._drop(torch.cat([x, skips.pop()], dim=1))
             x = self.blocks[self.depth + 1 + j](x)
         logits = _conv(x, self.head.weight, self.head.bias, self.dtype)
@@ -192,25 +302,40 @@ def _variance_scaling_(w: torch.Tensor, scale: float, fan_in: int,
         w.copy_((z * std).to(w.dtype))
 
 
-def build_unet(input_shape: Tuple[int, int, int], depth: int = 3,
-               base_filters: int = 128, dtype: torch.dtype = torch.float32,
-               generator: Optional[torch.Generator] = None) -> UNet:
-    """A freshly initialised U-Net for ``input_shape = (X, Y, C)``:
-    he-normal 3x3 convs, lecun-normal transposed convs and head, zero
-    biases, identity BatchNorm — all drawn from ``generator`` (a CPU
+def init_unet_(model: UNet, generator: Optional[torch.Generator] = None
+               ) -> UNet:
+    """Draw ``model``'s weights as the JAX package initialises its U-Net:
+    he-normal 3x3 convs, lecun-normal up-sampling convs and head, zero
+    biases and shifts, identity BatchNorm — from ``generator`` (a CPU
     ``torch.Generator``; None uses the global one)."""
-    model = UNet(depth=depth, base_filters=base_filters, dtype=dtype,
-                 in_channels=input_shape[-1])
     for block in model.blocks:
         for conv in (block.conv0, block.conv1):
-            _variance_scaling_(conv.weight, 2.0,
-                               conv.in_channels * 9, generator)
+            _variance_scaling_(conv.weight, 2.0, conv.in_channels * 9, generator)
             nn.init.zeros_(conv.bias)
-    for conv in (*model.ups, model.head):
+    ups = [getattr(up, "packed", up) for up in model.ups]
+    for conv in (*ups, model.head):
         k = conv.kernel_size[0] * conv.kernel_size[1]
         _variance_scaling_(conv.weight, 1.0, conv.in_channels * k, generator)
         nn.init.zeros_(conv.bias)
+    for name, buf in model.state_dict().items():
+        with torch.no_grad():
+            if name.endswith((".running_var", "bn0.weight", "bn1.weight")):
+                buf.fill_(1.0)
+            elif name.endswith((".running_mean", "bn0.bias", "bn1.bias",
+                                ".shift0", ".shift1")):
+                buf.zero_()
     return model
+
+
+def build_unet(input_shape: Tuple[int, int, int], depth: int = 3,
+               base_filters: int = 128, dtype: torch.dtype = torch.float32,
+               generator: Optional[torch.Generator] = None, **kwargs) -> UNet:
+    """A freshly initialised U-Net for ``input_shape = (X, Y, C)``
+    (:func:`init_unet_`); ``kwargs`` go to :class:`UNet` (``norm``,
+    ``up_kind``, ``row_split``, ``dropout_rate``)."""
+    model = UNet(depth=depth, base_filters=base_filters, dtype=dtype,
+                 in_channels=input_shape[-1], **kwargs)
+    return init_unet_(model, generator)
 
 
 def fold_batchnorm(model: UNet) -> Optional[UNet]:
@@ -227,7 +352,7 @@ def fold_batchnorm(model: UNet) -> Optional[UNet]:
     dev = model.head.weight.device
     folded = UNet(model.depth, model.base_filters, model.num_classes,
                   model.dropout_rate, model.dtype, "shift",
-                  model.in_channels).to(dev)
+                  model.in_channels, model.up_kind, model.row_split).to(dev)
     with torch.no_grad():
         for src, dst in zip(model.blocks, folded.blocks):
             for i in range(2):
@@ -242,3 +367,55 @@ def fold_batchnorm(model: UNet) -> Optional[UNet]:
         folded.ups.load_state_dict(model.ups.state_dict())
         folded.head.load_state_dict(model.head.state_dict())
     return folded.train(model.training)
+
+
+# flax tap k of the 3-tap transposed kernel lands at output 2i + 2 - k; the
+# port stores the kernel flipped, so its tap 2 - k does. Even outputs read
+# taps (0 at x[m - 1], 2 at x[m]) and odd outputs tap 1 at x[m] (JAX taps):
+# per output parity, (2 x 2 window tap, JAX tap)
+_PARITY_TAPS = {0: ((0, 0), (1, 2)), 1: ((1, 1),)}
+
+
+def fold_convtranspose_kernel(w: torch.Tensor) -> torch.Tensor:
+    """The port's ``(C, F, 3, 3)`` transposed-conv weight -> the ``(4F, C,
+    2, 2)`` weight of the subpixel up-sampling's ``packed`` conv computing the
+    same map: phase (di, dj) of output pixel (2m + di, 2n + dj) is a 2 x 2
+    conv over the front-padded window x[m - 1 .. m, n - 1 .. n] through the
+    parity-(di, dj) taps, in output channels (di * 2 + dj) * F + f."""
+    C, F_ = w.shape[0], w.shape[1]
+    out = w.new_zeros(4 * F_, C, 2, 2)
+    for di in (0, 1):
+        for dj in (0, 1):
+            g = di * 2 + dj
+            for a, kr in _PARITY_TAPS[di]:
+                for b, kc in _PARITY_TAPS[dj]:
+                    out[g * F_:(g + 1) * F_, :, a, b] = w[:, :, 2 - kr, 2 - kc].T
+    return out
+
+
+def convtranspose_to_subpixel_params(weight: torch.Tensor,
+                                     bias: Optional[torch.Tensor] = None
+                                     ) -> dict:
+    """A transposed conv's weight and bias -> the ``packed.weight`` /
+    ``packed.bias`` entries of the subpixel up-sampling layer."""
+    out = {"packed.weight": fold_convtranspose_kernel(weight)}
+    if bias is not None:
+        out["packed.bias"] = bias.repeat(4)
+    return out
+
+
+def variables_to_subpixel(state: dict) -> dict:
+    """``state_dict`` of a ``UNet(up_kind="convt")`` (Keras weights
+    included, ``weights_io.py``) -> that of ``UNet(up_kind="subpixel")``
+    computing the same outputs."""
+    out = {}
+    for key, value in state.items():
+        parts = key.split(".")
+        if parts[0] == "ups" and parts[2] == "weight":
+            j = parts[1]
+            for name, v in convtranspose_to_subpixel_params(
+                    value, state.get(f"ups.{j}.bias")).items():
+                out[f"ups.{j}.{name}"] = v
+        elif not (parts[0] == "ups" and parts[2] == "bias"):
+            out[key] = value
+    return out

@@ -7,7 +7,9 @@ keyed by field name — for example the leaves of the JAX package's dataclasses
 of the same names — so a run can resume from a carry produced elsewhere.
 ``unet_state_from_flax`` carries the U-Net's weights across: the Flax
 variable tree of the JAX package's ``UNet`` as numpy arrays in, the
-``state_dict`` of the port's ``UNet`` out.
+``state_dict`` of the port's ``UNet`` out (either up-sampling form: the
+transposed convs or the subpixel ``packed`` convs), and
+``quant_params_from_jax`` the int8 parameters of ``models/quant.py``.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from tissue_image_processing_tpu_torch.core.cell_table import CellTable
 from tissue_image_processing_tpu_torch.core.tracking import TrackingState
 
 __all__ = ["tracking_state_from_numpy", "cell_table_from_numpy",
-           "unet_state_from_flax"]
+           "unet_state_from_flax", "quant_params_from_jax"]
 
 _STATE_DTYPES = {"pos": torch.float32, "sqrt_area": torch.float32,
                  "track_id": torch.int32, "age": torch.int32,
@@ -62,7 +64,8 @@ def cell_table_from_numpy(leaves: Mapping[str, np.ndarray],
 
 def unet_state_from_flax(variables: Mapping) -> dict:
     """``state_dict`` of the port's ``UNet`` from the Flax variable tree of
-    the JAX package's ``UNet`` (numpy leaves), in either form: ``norm="bn"``
+    the JAX package's ``UNet`` (numpy leaves; ``up_kind`` "convt" or, with
+    ``_SubpixelUp_j/packed``, "subpixel"), in either form: ``norm="bn"``
     (``params`` with ``BatchNorm_i/{scale,bias}`` and ``batch_stats`` with
     ``mean`` / ``var``) or the folded ``norm="shift"`` (``Shift_i``); a tree
     with neither loads into ``norm="none"``.
@@ -83,8 +86,7 @@ def unet_state_from_flax(variables: Mapping) -> dict:
         block = params[f"DoubleConv_{k}"]
         for i in range(2):
             conv = block[f"Conv_{i}"]
-            state[f"blocks.{k}.conv{i}.weight"] = t(
-                np.transpose(np.asarray(conv["kernel"]), (3, 2, 0, 1)))
+            state[f"blocks.{k}.conv{i}.weight"] = t(_oihw(conv["kernel"]))
             state[f"blocks.{k}.conv{i}.bias"] = t(conv["bias"])
             if f"BatchNorm_{i}" in block:
                 bn = block[f"BatchNorm_{i}"]
@@ -99,12 +101,63 @@ def unet_state_from_flax(variables: Mapping) -> dict:
             elif f"Shift_{i}" in block:
                 state[f"blocks.{k}.shift{i}"] = t(block[f"Shift_{i}"])
     for j in range((n_blocks - 1) // 2):
+        if f"_SubpixelUp_{j}" in params:   # UNet(up_kind="subpixel")
+            packed = params[f"_SubpixelUp_{j}"]["packed"]
+            state[f"ups.{j}.packed.weight"] = t(_oihw(packed["kernel"]))
+            state[f"ups.{j}.packed.bias"] = t(packed["bias"])
+            continue
         up = params[f"ConvTranspose_{j}"]
-        kernel = np.asarray(up["kernel"])[::-1, ::-1]
-        state[f"ups.{j}.weight"] = t(np.transpose(kernel, (2, 3, 0, 1)))
+        state[f"ups.{j}.weight"] = t(_convt_weight(up["kernel"]))
         state[f"ups.{j}.bias"] = t(up["bias"])
     head = params["Conv_0"]
-    state["head.weight"] = t(np.transpose(np.asarray(head["kernel"]),
-                                          (3, 2, 0, 1)))
+    state["head.weight"] = t(_oihw(head["kernel"]))
     state["head.bias"] = t(head["bias"])
     return state
+
+
+def _oihw(kernel) -> np.ndarray:
+    """A Flax conv kernel (HWIO) as PyTorch's (O, I, H, W)."""
+    return np.transpose(np.asarray(kernel), (3, 2, 0, 1))
+
+
+def _convt_weight(kernel) -> np.ndarray:
+    """A Flax transposed-conv kernel (kh, kw, in, out), tap k landing at
+    output 2i + 2 - k, as ``F.conv_transpose2d``'s (in, out, kh, kw), tap k
+    landing at 2i + k: flipped in both spatial axes."""
+    return np.transpose(np.asarray(kernel)[::-1, ::-1], (2, 3, 0, 1))
+
+
+def quant_params_from_jax(qparams: Mapping) -> dict:
+    """The int8 parameters of ``models/quant.py:quantize_unet`` from the JAX
+    package's qparams tree (numpy leaves), so both packages can run on
+    identical scales: ``in_scale``; for double conv k ``blocks.k.out_scale``
+    and, for conv i, ``blocks.k.conv{i}.wq`` (int8, HWIO -> OIHW),
+    ``.wscale``, ``.bias``, ``.shift`` and (i = 1) ``.in_scale``; for
+    transposed conv j ``ups.j.weight`` (flipped as in
+    :func:`unet_state_from_flax`), ``.bias``, ``.out_scale``; ``head.weight``,
+    ``head.bias``. Float leaves are float32, scales 0-d."""
+    params = qparams["params"]
+
+    def f32(a):
+        return torch.from_numpy(np.array(a, dtype=np.float32))
+
+    out = {"in_scale": f32(params["in_scale"])}
+    n_blocks = sum(1 for k in params if k.startswith("DoubleConv_"))
+    for k in range(n_blocks):
+        block = params[f"DoubleConv_{k}"]
+        out[f"blocks.{k}.out_scale"] = f32(block["out_scale"])
+        for i in range(2):
+            conv, pre = block[f"Conv_{i}"], f"blocks.{k}.conv{i}."
+            out[pre + "wq"] = torch.from_numpy(
+                np.ascontiguousarray(_oihw(conv["wq"]), dtype=np.int8))
+            for name in ("wscale", "bias", "shift", "in_scale"):
+                if name in conv:
+                    out[pre + name] = f32(conv[name])
+    for j in range((n_blocks - 1) // 2):
+        up = params[f"ConvTranspose_{j}"]
+        out[f"ups.{j}.weight"] = f32(_convt_weight(up["kernel"]))
+        out[f"ups.{j}.bias"] = f32(up["bias"])
+        out[f"ups.{j}.out_scale"] = f32(up["out_scale"])
+    out["head.weight"] = f32(_oihw(params["Conv_0"]["kernel"]))
+    out["head.bias"] = f32(params["Conv_0"]["bias"])
+    return out

@@ -6,7 +6,12 @@
 numpy seed. A Z == 1 movie is a pre-projected one. ``coil_mask`` is the hard
 case of a connected-component search: one thin component that winds through
 the whole image. ``settle_cases`` are the inputs on which a tiled schedule of
-the Meyer settle is most likely to go wrong.
+the Meyer settle is most likely to go wrong. ``keras_unet_arrays`` and
+``write_keras_h5`` make a Keras U-Net weights file from a seed (no trained
+checkpoint ships with the repository); ``training_frames`` makes annotated
+(image, label) frames for the training loop. ``random_unet`` and
+``head_bias_for_share`` make the on-card smoke run's random U-Net, whose
+head bias puts a chosen share of a frame's pixels past the HC threshold.
 """
 
 from __future__ import annotations
@@ -15,7 +20,9 @@ from typing import Optional
 
 import numpy as np
 
-__all__ = ["make_movie", "coil_mask", "settle_cases", "random_settle_case"]
+__all__ = ["make_movie", "coil_mask", "settle_cases", "random_settle_case",
+           "keras_unet_arrays", "write_keras_h5", "training_frames",
+           "random_unet", "head_bias_for_share"]
 
 
 def make_movie(T: int, Z: int, H: int, W: int, n_cells: Optional[int] = None,
@@ -141,3 +148,136 @@ def settle_cases(tile: int, ragged=()):
     for k, (h, w) in enumerate(ragged):
         cases[f"ragged_{h}x{w}"] = random_settle_case(h, w, seed=10 + k)
     return cases
+
+
+def keras_unet_arrays(depth: int, base_filters: int, in_channels: int = 2,
+                      seed: int = 0) -> dict:
+    """Seeded random weights of the reference U-Net in Keras' shapes, by
+    layer name in Keras' creation order: ``conv2d*`` (h, w, in, out; the
+    double convs down, bottleneck, up, then the 1x1 head; he-normal scale),
+    ``conv2d_transpose*`` (h, w, out, in), ``batch_normalization*`` (gamma,
+    beta, moving mean, moving variance)."""
+    rng = np.random.default_rng(seed)
+    filters = [base_filters * 2 ** i for i in range(depth)]
+    blocks, cin = [], in_channels
+    for f in filters:
+        blocks.append((cin, f))
+        cin = f
+    blocks.append((cin, 2 * cin))
+    ups = [(2 * f, f) for f in reversed(filters)]
+    blocks += [(2 * f, f) for f in reversed(filters)]
+    convs, bns = [], []
+    for cin, cout in blocks:
+        convs += [(cin, cout), (cout, cout)]
+        bns += [cout, cout]
+    convs.append((filters[0], 2))
+
+    def name(base, i):
+        return base if i == 0 else f"{base}_{i}"
+
+    def normal(shape, std):
+        return (rng.standard_normal(shape) * std).astype(np.float32)
+
+    layers = {}
+    for i, (cin, cout) in enumerate(convs):
+        k = 1 if i == len(convs) - 1 else 3
+        layers[name("conv2d", i)] = {
+            "kernel": normal((k, k, cin, cout), (2.0 / (k * k * cin)) ** 0.5),
+            "bias": normal((cout,), 0.1)}
+    for i, (cin, cout) in enumerate(ups):
+        layers[name("conv2d_transpose", i)] = {
+            "kernel": normal((3, 3, cout, cin), (1.0 / (9 * cin)) ** 0.5),
+            "bias": normal((cout,), 0.1)}
+    for i, c in enumerate(bns):
+        layers[name("batch_normalization", i)] = {
+            "gamma": rng.uniform(0.5, 1.5, c).astype(np.float32),
+            "beta": normal((c,), 1.0), "moving_mean": normal((c,), 1.0),
+            "moving_variance": rng.uniform(0.5, 1.5, c).astype(np.float32)}
+    return layers
+
+
+def write_keras_h5(path: str, layers: dict, layout: str) -> None:
+    """Write ``layers`` (name -> {weight name -> array}) as a Keras weights
+    file: ``layout="keras2"`` names ``model_weights/<layer>/<layer>/<name>:0``,
+    ``"keras3"`` ``layers/<layer>/vars/<index>`` beside a top-level
+    ``vars``."""
+    import h5py
+
+    order = {"conv": ("kernel", "bias"),
+             "bn": ("gamma", "beta", "moving_mean", "moving_variance")}
+    with h5py.File(path, "w") as f:
+        if layout == "keras2":
+            root = f.create_group("model_weights")
+            for lname, arrays in layers.items():
+                g = root.create_group(lname).create_group(lname)
+                for k, v in arrays.items():
+                    g.create_dataset(f"{k}:0", data=v)
+        elif layout == "keras3":
+            f.create_group("vars")
+            root = f.create_group("layers")
+            for lname, arrays in layers.items():
+                names = order["bn" if lname.startswith("batch") else "conv"]
+                g = root.create_group(lname).create_group("vars")
+                for i, k in enumerate(names):
+                    g.create_dataset(str(i), data=arrays[k])
+        else:
+            raise ValueError(f"layout must be keras2 or keras3, got {layout!r}")
+
+
+def training_frames(n: int, H: int, W: int, seed: int = 0):
+    """``n`` annotated frames for ``models/train.py``: (2, H, W) float32
+    images of ``make_movie`` (membrane ridges, their complement) and (H, W)
+    int32 labels with 0 on the membranes (~10% of the pixels), 1 (HC) or 2
+    (SC) in the cells, HC where the cell's seed row is even."""
+    from scipy.spatial import cKDTree
+
+    movie = make_movie(T=n, Z=1, H=H, W=W, seed=seed)[:, :, 0]
+    rng = np.random.default_rng(seed + 1)
+    pts = np.stack([rng.uniform(0, H, 64), rng.uniform(0, W, 64)], 1)
+    yy, xx = np.mgrid[0:H, 0:W]
+    _, owner = cKDTree(pts).query(np.stack([yy.ravel(), xx.ravel()], 1))
+    cell_type = np.where(np.arange(64) % 2 == 0, 1, 2)
+    labels = []
+    for t in range(n):
+        ridge = movie[t, 0]
+        lab = cell_type[owner].reshape(H, W).astype(np.int32)
+        lab[ridge > np.quantile(ridge, 0.9)] = 0
+        labels.append(lab)
+    return [movie[t] for t in range(n)], labels
+
+
+def random_unet(depth: int, base_filters: int, seed: int = 0, dtype=None):
+    """``models/unet.py:build_unet`` weights (he / lecun-normal convs) from a
+    CPU generator seeded with ``seed``, with every BatchNorm's scale, bias
+    and running statistics then drawn from the same generator away from the
+    identity (scales in [0.5, 1.5], so the fold to shifts succeeds). The
+    weights do not depend on the input's size."""
+    import torch
+
+    from tissue_image_processing_tpu_torch.models.unet import build_unet
+
+    gen = torch.Generator().manual_seed(seed)
+    model = build_unet((8, 8, 2), depth=depth, base_filters=base_filters,
+                       dtype=dtype or torch.float32, generator=gen)
+    ranges = {"weight": (0.5, 1.5), "bias": (-0.2, 0.2),
+              "running_mean": (0.0, 0.5), "running_var": (0.5, 1.5)}
+    with torch.no_grad():
+        for name, buf in model.state_dict().items():
+            leaf = name.rsplit(".", 1)[1]
+            if ".bn" in name and leaf in ranges:
+                lo, hi = ranges[leaf]
+                buf.copy_(lo + (hi - lo) * torch.rand(buf.shape, generator=gen))
+    return model
+
+
+def head_bias_for_share(probs, share: float, threshold: float = 0.1) -> float:
+    """What to add to the head's channel-0 bias so that ``share`` of the
+    pixels of the softmax ``probs`` (..., 2) pass p0 > ``threshold``: the
+    log-odds cut minus the (1 - share) quantile of log p0 - log p1."""
+    import torch
+
+    p = probs.float().clamp_min(1e-30)
+    gap = (torch.log(p[..., 0]) - torch.log(p[..., 1])).reshape(-1)
+    kth = max(1, int(round((1.0 - share) * gap.numel())))
+    cut = float(np.log(threshold / (1.0 - threshold)))
+    return float(cut - torch.kthvalue(gap.cpu(), kth).values)
