@@ -34,12 +34,13 @@ Phases (any failure exits non-zero; no phase catches and continues):
    stack and on a z-map with a full-range step (every plane admitted).
    The int8 U-Net's conv kernel (``conv3x3_s8``) at every 3x3 conv shape of
    the depth-3, 128-filter network on eight 1024^2 frames, the int8 main
-   path's batch (single and split forms, Cin = 2 included), against its
-   plain version and a
-   ``torch._int_mm`` route, timed beside cuDNN's bfloat16 conv of the same
-   shape. The blur, the diffusions, the component minimum, the settle mask, the
-   settle (labels AND arrival stamps), both projection passes and the int8
-   conv bit for bit; times are the median of
+   path's batch (single and split convs, Cin = 2 included), in the form it
+   picks for the shape (tensor core or first conv) and in the generic form,
+   against its plain version and a ``torch._int_mm`` route, the two forms
+   timed in turns (generic, picked, picked, generic) beside cuDNN's
+   bfloat16 conv of the same shape. The blur, the diffusions, the component
+   minimum, the settle mask, the settle (labels AND arrival stamps), both
+   projection passes and the int8 conv bit for bit; times are the median of
    five repeats of a CUDA-event bracket, the redesigned kernels' with their
    spread, and for the score pass, the blur and the settle mask also the
    device time of calls replayed from a CUDA graph; then the device time of
@@ -73,7 +74,8 @@ Phases (any failure exits non-zero; no phase catches and continues):
    persistence as expected, ``movie_pipeline_chunked`` (3-frame chunks)
    identical to the unchunked run; print frames/s and the pipeline's own
    stage seconds; int8 against bfloat16: 14 ``conv3x3_s8`` launches a
-   forward, each of the batch-8 forward's convs equal to the plain version
+   forward (13 of the tensor-core form, 1 of the first-conv form), each of
+   the batch-8 forward's convs equal to the plain version
    on its inputs, HC-mask agreement >= ``INT8_HC_FLOOR`` (witnessed by the
    JAX package's own pair: ``tests/int8_witness.py``) and the label Dice
    (``bench.py``'s accuracy pair);
@@ -91,8 +93,9 @@ Phases (any failure exits non-zero; no phase catches and continues):
    card against the CPU;
 7. print the kernel table as one JSON object (launches from the Z=30
    watershed run, the component minimum's from the U-Net run, the int8
-   conv's from the int8 U-Net run — its times summed over one forward's 14
-   convs at B = 8, with each shape under ``by_shape`` — and each
+   conv's from the int8 U-Net run, with its launches by form — its times
+   summed over one forward's 14 convs at B = 8, the generic form's beside
+   them, with each shape under ``by_shape`` — and each
    kernel's launches by function of phase 3), then the
    card's line, and
    as the last line ``{"ok": true, "device": {...}}``.
@@ -1009,12 +1012,43 @@ def plain_in_slices(x, wq, wscale, bias, shift, x_scale, out_scale,
         for i in range(0, x.shape[0], step)])
 
 
+def conv_case(gen, B: int, side: int, cin: int, cout: int, cs: int):
+    """One conv shape of ``UNET_CONVS`` on B frames: random int8 inputs and
+    weights, scales that spread the outputs over the int8 range. Returns
+    (positional arguments, keyword arguments, packed weights) of
+    ``conv3x3_s8``."""
+    import torch
+
+    from tissue_image_processing_tpu_torch.ops.conv_s8_cuda import packed_pair
+
+    dev = torch.device("cuda")
+
+    def i8(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device=dev,
+                             dtype=torch.int8)
+
+    x = i8(B, side, side, cin)
+    skip = i8(B, side, side, cs) if cs else None
+    wq = i8(cout, cin + cs, 3, 3)
+    K = 9 * (cin + cs)
+    # acc std ~ sqrt(K) * 127^2 / 3: scales that put y at ~half the range
+    wscale = (0.5 + torch.rand(cout, generator=gen, device=dev)) * (
+        127.0 / (2 * K ** 0.5 * 127 ** 2 / 3))
+    bias = 0.1 * torch.randn(cout, generator=gen, device=dev)
+    shift = 0.1 * torch.randn(cout, generator=gen, device=dev)
+    s0, s1, so = (torch.tensor(v, device=dev) for v in (1.0, 1.3, 1.0))
+    kw = dict(skip=skip, skip_scale=s1 if cs else None)
+    return (x, wq, wscale, bias, shift, s0, so), kw, packed_pair(
+        wq, cin if cs else None)
+
+
 def check_conv_s8(card: str, B: int = 8):
     """The int8 conv kernel against its plain version, bit for bit, at every
     3x3 conv shape of the depth-3, 128-filter U-Net on B 1024^2 frames, the
-    shapes of the int8 main path's batch-8 forward (random int8 inputs and
-    weights, scales that spread the outputs over the int8 range), two runs
-    equal; its device time by CUDA-graph replay, the plain version's (two
+    shapes of the int8 main path's batch-8 forward (``conv_case``), two runs
+    equal: the form ``conv3x3_s8`` picks for the shape (tensor core, or the
+    first conv) and the generic form, each timed by CUDA-graph replay in
+    turns (generic, picked, picked, generic); the plain version's time (two
     frames at a time), the ``torch._int_mm`` route's (equal to the kernel,
     checked) and cuDNN's bfloat16 conv of the same shape; the bound.
     Returns the kernel row: sums over one forward's 14 convs, and the
@@ -1023,38 +1057,34 @@ def check_conv_s8(card: str, B: int = 8):
     import torch.nn.functional as F
 
     from tissue_image_processing_tpu_torch.ops.conv_s8_cuda import (
-        conv3x3_s8, packed_pair)
+        _conv3x3_s8, conv3x3_s8, conv_s8_form)
     from tissue_image_processing_tpu_torch.utils.kernel_variants import graph_ms
 
     gen = torch.Generator(device="cuda").manual_seed(8)
-    dev = torch.device("cuda")
-    total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, library_bf16_ms=0.0,
+    total = dict(ms=0.0, ms_2=0.0, generic_ms=0.0, generic_ms_2=0.0,
+                 plain_ms=0.0, library_ms=0.0, library_bf16_ms=0.0,
                  bound_ms=0.0, ops=0.0, nbytes=0.0)
     err, shapes = 0.0, []
     for (side, cin, cout, cs), times in UNET_CONVS:
-        def i8(*shape):
-            return torch.randint(-127, 128, shape, generator=gen, device=dev,
-                                 dtype=torch.int8)
+        args, kw, packed = conv_case(gen, B, side, cin, cout, cs)
+        x, wq, wscale, bias, shift, s0, so = args
+        skip, s1 = kw["skip"], kw["skip_scale"]
+        form = conv_s8_form(cin, cs, cout)
 
-        x = i8(B, side, side, cin)
-        skip = i8(B, side, side, cs) if cs else None
-        wq = i8(cout, cin + cs, 3, 3)
-        K = 9 * (cin + cs)
-        # acc std ~ sqrt(K) * 127^2 / 3: scales that put y at ~half the range
-        wscale = (0.5 + torch.rand(cout, generator=gen, device=dev)) * (
-            127.0 / (2 * K ** 0.5 * 127 ** 2 / 3))
-        bias = 0.1 * torch.randn(cout, generator=gen, device=dev)
-        shift = 0.1 * torch.randn(cout, generator=gen, device=dev)
-        s0, s1, so = (torch.tensor(v, device=dev) for v in (1.0, 1.3, 1.0))
-        args = (x, wq, wscale, bias, shift, s0, so)
-        kw = dict(skip=skip, skip_scale=s1 if cs else None)
-        packed = packed_pair(wq, cin if cs else None)
-        got = conv3x3_s8(*args, packed=packed, **kw)
+        def picked():
+            return conv3x3_s8(*args, packed=packed, **kw)
+
+        def generic():
+            return _conv3x3_s8(*args, packed=packed, form="generic", **kw)
+
+        got = picked()
         want = plain_in_slices(*args, **kw)
-        assert torch.equal(got, want), f"conv3x3_s8 {side} {cin}+{cs}->{cout}"
+        assert torch.equal(got, want), \
+            f"conv3x3_s8 ({form}) {side} {cin}+{cs}->{cout}"
         err = max(err, max_abs_err(got, want))
-        assert torch.equal(conv3x3_s8(*args, packed=packed, **kw), got), \
-            "conv3x3_s8: two runs differ"
+        assert torch.equal(picked(), got), "conv3x3_s8: two runs differ"
+        assert torch.equal(generic(), want), \
+            f"conv3x3_s8 (generic) {side} {cin}+{cs}->{cout}"
         lib = int_mm_route(x, skip, wq, wscale, bias, shift, s0, s1, so)
         assert torch.equal(lib, want), "the _int_mm route disagrees"
         levels = len(torch.unique(got))
@@ -1062,39 +1092,54 @@ def check_conv_s8(card: str, B: int = 8):
         xb = (x if skip is None else torch.cat([x, skip], -1)).permute(
             0, 3, 1, 2).to(torch.bfloat16)
         wb = wq.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        turns = [graph_ms(fn, reps=5) for fn in (generic, picked, picked,
+                                                 generic)]
         row = dict(
-            shape=[B, side, side, cin, cs, cout], per_forward=times,
-            device_ms=graph_ms(lambda: conv3x3_s8(*args, packed=packed, **kw),
-                               reps=5),
+            shape=[B, side, side, cin, cs, cout], per_forward=times, form=form,
+            device_ms=turns[1], device_ms_2=turns[2], generic_ms=turns[0],
+            generic_ms_2=turns[3],
             plain_ms=cuda_ms(lambda: plain_in_slices(*args, **kw), 1),
             library_ms=cuda_ms(lambda: int_mm_route(x, skip, wq, wscale, bias,
                                                     shift, s0, s1, so), 2),
             library_bf16_ms=cuda_ms(lambda: F.conv2d(xb, wb, padding=1), 5))
+        K = 9 * (cin + cs)
         ops = 2.0 * B * side * side * K * cout
         nbytes = B * side * side * (cin + cs + cout) + K * cout + 12 * cout
         row["bound_ms"], row["bound_by"] = bound_int8(nbytes, ops)
         row["tops"] = ops / row["device_ms"] / 1e9
+        row["generic_tops"] = ops / row["generic_ms"] / 1e9
         shapes.append(row)
-        for k in ("plain_ms", "library_ms", "library_bf16_ms", "bound_ms"):
-            total[k] += times * row[k]
+        for k in ("plain_ms", "library_ms", "library_bf16_ms", "bound_ms",
+                  "generic_ms", "generic_ms_2", "device_ms_2"):
+            total["ms_2" if k == "device_ms_2" else k] += times * row[k]
         total["ms"] += times * row["device_ms"]
         total["ops"] += times * ops
         total["nbytes"] += times * nbytes
         print(f"conv3x3_s8 B={B} {side}^2 {cin}{'+' + str(cs) if cs else ''}"
-              f"->{cout}: bit-exact vs plain and the _int_mm route, two runs "
-              f"equal, {levels} output levels; device {row['device_ms']:.4f} ms"
-              f" ({row['tops']:.1f} TOP/s), plain {row['plain_ms']:.4f}, "
-              f"_int_mm route {row['library_ms']:.4f}, cuDNN bf16 "
+              f"->{cout} ({form} form): bit-exact vs plain, the generic form "
+              f"and the _int_mm route, two runs equal, {levels} output "
+              f"levels; device {row['device_ms']:.4f} / "
+              f"{row['device_ms_2']:.4f} ms ({row['tops']:.1f} TOP/s, "
+              f"{row['bound_ms'] / row['device_ms']:.3f} of the bound), "
+              f"generic form {row['generic_ms']:.4f} / "
+              f"{row['generic_ms_2']:.4f} ({row['generic_tops']:.1f} TOP/s), "
+              f"plain {row['plain_ms']:.4f}, _int_mm route "
+              f"{row['library_ms']:.4f}, cuDNN bf16 "
               f"{row['library_bf16_ms']:.4f}, bound {row['bound_ms']:.4f} ms "
               f"({row['bound_by']}) on {card}")
-        del x, skip, got, want, lib, xb
+        del x, skip, got, want, lib, xb, args, kw
     total_bound = bound_int8(total["nbytes"], total["ops"])
     print(f"conv3x3_s8, one forward's 14 convs at B={B}: device "
-          f"{total['ms']:.4f} ms ({total['ops'] / total['ms'] / 1e9:.1f} "
-          f"TOP/s), plain {total['plain_ms']:.4f}, _int_mm route "
-          f"{total['library_ms']:.4f}, cuDNN bf16 {total['library_bf16_ms']:.4f},"
-          f" bound {total_bound[0]:.4f} ms ({total_bound[1]})")
+          f"{total['ms']:.4f} / {total['ms_2']:.4f} ms "
+          f"({total['ops'] / total['ms'] / 1e9:.1f} TOP/s, "
+          f"{total_bound[0] / total['ms']:.3f} of the bound), generic form "
+          f"{total['generic_ms']:.4f} / {total['generic_ms_2']:.4f}, plain "
+          f"{total['plain_ms']:.4f}, _int_mm route {total['library_ms']:.4f}, "
+          f"cuDNN bf16 {total['library_bf16_ms']:.4f}, bound "
+          f"{total_bound[0]:.4f} ms ({total_bound[1]}) on {card}")
     return dict(err=err, ms=total["ms"], device_ms=total["ms"],
+                device_ms_2=total["ms_2"], generic_ms=total["generic_ms"],
+                generic_ms_2=total["generic_ms_2"],
                 plain_ms=total["plain_ms"], bound=total_bound,
                 library_ms=total["library_ms"],
                 library_bf16_ms=total["library_bf16_ms"], by_shape=shapes)
@@ -1222,9 +1267,9 @@ def check_unet_pipeline(card: str, movie):
     assert np.abs(got["drifts"] - out["drifts"]).max() <= 1e-4
     print("U-Net pipeline: chunked(3) == unchunked (labels, ids, areas; "
           "drifts to 1e-4)")
-    int8_launches = check_int8_pipeline(card, movie, cfg, cfg_q, kw,
-                                        T / secs)
-    return launches, by_shape, int8_launches
+    int8_launches, int8_forms = check_int8_pipeline(card, movie, cfg, cfg_q,
+                                                    kw, T / secs)
+    return launches, by_shape, int8_launches, int8_forms
 
 
 def best_dice(got, want) -> float:
@@ -1293,6 +1338,8 @@ def check_int8_pipeline(card: str, movie, cfg, cfg_q, kw, bf16_fps: float):
                if launches[k] == 0]
     assert not missing, f"kernels not launched on the int8 U-Net path: {missing}"
     assert launches["conv3x3_s8"] == 14, launches   # 7 double convs, batch 8
+    forms = dict(tipt._device.CONV_LAUNCHES)
+    assert forms == {"tensor_core": 13, "first_conv": 1}, forms
     assert launches["cc_scan"] == 8 and launches["settle"] == 1, launches
     labels = out["labels"]
     cells = [int(l.max()) for l in labels]
@@ -1300,7 +1347,8 @@ def check_int8_pipeline(card: str, movie, cfg, cfg_q, kw, bf16_fps: float):
     assert np.isfinite(out["drifts"]).all()
     print(f"movie_pipeline(unet, int8) {T} x 1024^2 Z={Z}: {T / secs:.3f} "
           f"frames/s ({secs:.3f} s; bfloat16 run {bf16_fps:.3f} frames/s) on "
-          f"{card}; launches {launches}; cells/frame {cells}")
+          f"{card}; launches {launches}; conv3x3_s8 launches by form {forms}; "
+          f"cells/frame {cells}")
     print(f"stage seconds (U-Net int8, {T} x 1024^2, Z={Z}): " + ", ".join(
         f"{k} {v:.4f}" for k, v in stages.items()) + f" on {card}")
     got = movie_pipeline_chunked(movie, chunk_frames=3, unet=cfg_q, **kw)
@@ -1356,7 +1404,7 @@ def check_int8_pipeline(card: str, movie, cfg, cfg_q, kw, bf16_fps: float):
           f"label Dice {dice:.6f} (floor {INT8_HC_FLOOR}, from the JAX "
           f"package's pair on the same network: tests/int8_witness.py)")
     assert hc_agree >= INT8_HC_FLOOR, f"int8 vs bf16 HC agreement {hc_agree}"
-    return launches
+    return launches, forms
 
 
 def check_keras_weights(card: str):
@@ -1706,8 +1754,8 @@ def main() -> int:
     del stack
     check_pipeline(card, movie_z1)
     launches, blur_shapes = check_pipeline(card, movie_z30)
-    unet_launches, unet_blur_shapes, int8_launches = check_unet_pipeline(
-        card, movie_z30)
+    unet_launches, unet_blur_shapes, int8_launches, int8_forms = \
+        check_unet_pipeline(card, movie_z30)
     check_card_vs_cpu()
     check_keras_weights(card)
     check_training(card)
@@ -1738,6 +1786,10 @@ def main() -> int:
                 "launches_by_shape_unet": unet_blur_shapes})
         if name == "conv3x3_s8":   # one forward's convs, and each shape
             at_unet = {"library_bf16_ms": r["library_bf16_ms"],
+                       "ms_2": r["device_ms_2"],
+                       "generic_ms": r["generic_ms"],
+                       "generic_ms_2": r["generic_ms_2"],
+                       "launches_by_form": int8_forms,
                        "by_shape": r["by_shape"]}
         table.append({
             "name": name, "route": "cuda",

@@ -9,6 +9,12 @@ that in one kernel (``csrc/conv_s8.cu``) on int8 channels-last tensors, in a
 single form and a split form over an (up, skip) pair with one accumulator
 each, so the concatenation never exists.
 
+The kernel has three forms, picked by shape in :func:`conv_s8_form`: the
+tensor-core form (TMA-staged tiles, warp-specialised ``wgmma``; every input
+with Cin a multiple of 64), the first-conv form (Cin <= 7) and the generic
+form (``mma.sync``; every other shape). ``_device.CONV_LAUNCHES`` counts
+launches by form beside the total in ``_device.LAUNCHES["conv3x3_s8"]``.
+
 ``conv3x3_s8_plain`` is the same function in PyTorch: the int32 sums by nine
 float64 tap products (exact: every partial sum is an integer below 2^53),
 then the epilogue as separate float32 operations in the JAX order. CPU
@@ -31,12 +37,58 @@ import torch.nn.functional as F
 from tissue_image_processing_tpu_torch import _device
 
 __all__ = ["conv3x3_s8", "conv3x3_s8_plain", "conv3x3_s8_acc_plain",
-           "pack_conv_s8_weight", "packed_pair", "exact_div"]
+           "conv_s8_form", "pack_conv_s8_weight", "packed_pair", "exact_div"]
 
-BLOCK_N, BLOCK_K = 128, 32   # the kernel's output-channel tile and K chunk
+BLOCK_N, BLOCK_K = 128, 32   # the packed weights' row and K granules
+FORMS = ("generic", "tensor_core", "first_conv")   # the C entry's form codes
+TC_COLS = 64   # tensor-core form: pixels of one image row in a tile row
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"conv3x3_s8": (_P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I,
-                              _I, _P, _P, _P, _P, _P, _P, _P, _P)}
+_SIGNATURES = {"conv3x3_s8": (_I, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I,
+                              _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                              _P, _P, _P)}
+
+
+def conv_s8_form(cin: int, skip_cin: int, cout: int) -> str:
+    """The kernel form for a conv of ``cin`` (+ ``skip_cin``, 0 for a single
+    conv) input channels and ``cout`` output channels: ``"tensor_core"`` when
+    every input's channels are a multiple of 64 (its TMA boxes take 128
+    channels of one tap), ``"first_conv"`` for a single input of at most 7
+    channels (one or two K steps of 32) and Cout a multiple of 64 up to 256,
+    else ``"generic"``."""
+    if cin > 0 and cin % 64 == 0 and skip_cin % 64 == 0:
+        return "tensor_core"
+    if skip_cin == 0 and 0 < cin <= 7 and cout % 64 == 0 and cout <= 256:
+        return "first_conv"
+    return "generic"
+
+
+def _tc_tiles(H: int, W: int, cout: int, split: bool) -> dict:
+    """The tensor-core form's tile for a conv and its tile counts: ``mw``
+    image rows of 64 pixels per consumer warpgroup (two warpgroups), ``bn``
+    output channels. A split conv keeps two accumulator sets, so 128
+    channels; a single one 256 when Cout exceeds 128, else 128 channels and
+    two rows a warpgroup."""
+    mw, bn = (1, 128) if split else (1, 256) if cout > 128 else (2, 128)
+    return dict(mw=mw, bn=bn, tiles_w=-(-W // TC_COLS),
+                tiles_h=-(-H // (2 * mw)), tiles_n=-(-cout // bn))
+
+
+def _tc_units(B: int, tiles: dict) -> int:
+    """Output tiles of the persistent kernel; block i computes tiles i, i +
+    blocks, i + 2 * blocks, ..."""
+    return tiles["tiles_n"] * B * tiles["tiles_h"] * tiles["tiles_w"]
+
+
+def _tc_tile_origin(unit: int, tiles: dict):
+    """(frame, first row, first column, first channel) of output tile
+    ``unit`` — the kernel's ``tc_tile``: N tile fastest, then the column
+    block, the row block and the frame."""
+    nt = unit % tiles["tiles_n"]
+    m = unit // tiles["tiles_n"]
+    hw = tiles["tiles_h"] * tiles["tiles_w"]
+    b, r = divmod(m, hw)
+    ht, wt = divmod(r, tiles["tiles_w"])
+    return b, ht * 2 * tiles["mw"], wt * TC_COLS, nt * tiles["bn"]
 
 
 def exact_div(a, b, device=None) -> torch.Tensor:
@@ -145,11 +197,28 @@ def conv3x3_s8(x: torch.Tensor, wq: torch.Tensor, wscale: torch.Tensor,
     already in the kernel's form (:func:`pack_conv_s8_weight` of each half).
 
     CPU tensors run :func:`conv3x3_s8_plain`; CUDA tensors launch the kernel
-    or raise."""
+    form that :func:`conv_s8_form` picks for the shape, or raise."""
     if x.device.type == "cpu":
         return conv3x3_s8_plain(x, wq, wscale, bias, shift, x_scale, out_scale,
                                 skip, skip_scale)
+    form = conv_s8_form(x.shape[-1], 0 if skip is None else skip.shape[-1],
+                        wq.shape[0])
+    return _conv3x3_s8(x, wq, wscale, bias, shift, x_scale, out_scale, skip,
+                       skip_scale, packed, form)
+
+
+def _conv3x3_s8(x, wq, wscale, bias, shift, x_scale, out_scale, skip=None,
+                skip_scale=None, packed=None, form: str = "generic"
+                ) -> torch.Tensor:
+    """:func:`conv3x3_s8` on CUDA tensors through the kernel of ``form``:
+    the form :func:`conv_s8_form` picks, or ``"generic"``, which takes every
+    shape (``chip_smoke.py`` times it beside the picked form)."""
     _check_inputs(x, wq, skip, wscale, bias, shift)
+    cu, cs, cout = x.shape[-1], 0 if skip is None else skip.shape[-1], \
+        wq.shape[0]
+    if form not in ("generic", conv_s8_form(cu, cs, cout)):
+        raise ValueError(f"conv3x3_s8: the {form} form does not take "
+                         f"{cu}+{cs} -> {cout} channels")
     inputs = (x,) if skip is None else (x, skip)
     for t in inputs:
         _device.require_cuda_tensor(t, torch.int8, 4, "conv3x3_s8")
@@ -157,7 +226,9 @@ def conv3x3_s8(x: torch.Tensor, wq: torch.Tensor, wscale: torch.Tensor,
             raise ValueError("conv3x3_s8: inputs must be 16-byte aligned")
     for t in (wscale, bias, shift):
         _device.require_cuda_tensor(t, torch.float32, 1, "conv3x3_s8")
-    cu = x.shape[-1]
+    # the first-conv kernel reads two channels' parameters in one 8-byte load
+    wscale, bias, shift = (t if t.data_ptr() % 8 == 0 else t.clone()
+                           for t in (wscale, bias, shift))
     if packed is None:
         packed = packed_pair(wq, None if skip is None else cu)
     for p in packed:
@@ -166,22 +237,29 @@ def conv3x3_s8(x: torch.Tensor, wq: torch.Tensor, wscale: torch.Tensor,
                                      skip_scale)
     lib = _device.load_library("conv_s8", _SIGNATURES)
     B, H, W = x.shape[:3]
-    cout = wq.shape[0]
     out = torch.empty(B, H, W, cout, dtype=torch.int8, device=x.device)
     p0 = packed[0]
     if skip is None:
         x1 = w1 = None
-        c1 = k1 = 0
+        k1 = 0
     else:
-        x1, w1, c1, k1 = _device.ptr(skip), _device.ptr(packed[1]), \
-            skip.shape[-1], packed[1].shape[1]
-    rc = lib.conv3x3_s8(_device.ptr(x), _device.ptr(p0), cu, p0.shape[1], x1, w1,
-                        c1, k1, B, H, W, cout, p0.shape[0], _device.ptr(wscale),
-                        _device.ptr(bias), _device.ptr(shift), _device.ptr(s0),
-                        _device.ptr(s0 if s1 is None else s1), _device.ptr(qmul),
-                        _device.ptr(out), _device.stream_ptr())
-    _device.check_cuda(lib, rc, "conv3x3_s8")
+        x1, w1, k1 = _device.ptr(skip), _device.ptr(packed[1]), \
+            packed[1].shape[1]
+    tiles = _tc_tiles(H, W, cout, skip is not None) \
+        if form == "tensor_core" else dict(mw=0, bn=0, tiles_w=0, tiles_h=0,
+                                           tiles_n=0)
+    rc = lib.conv3x3_s8(FORMS.index(form), _device.ptr(x), _device.ptr(p0), cu,
+                        p0.shape[1], x1, w1, cs, k1, B, H, W, cout,
+                        p0.shape[0], tiles["mw"], tiles["bn"],
+                        tiles["tiles_w"], tiles["tiles_h"], tiles["tiles_n"],
+                        _device.ptr(wscale), _device.ptr(bias),
+                        _device.ptr(shift), _device.ptr(s0),
+                        _device.ptr(s0 if s1 is None else s1),
+                        _device.ptr(qmul), _device.ptr(out),
+                        _device.stream_ptr())
+    _device.check_cuda(lib, rc, f"conv3x3_s8 ({form})")
     _device.LAUNCHES["conv3x3_s8"] += 1
+    _device.CONV_LAUNCHES[form] += 1
     return out
 
 

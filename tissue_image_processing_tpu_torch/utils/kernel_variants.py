@@ -9,13 +9,16 @@ other tuning constants.
         score b1,SC_MIN_BLOCKS=1 z16,SC_ZCHUNK=16
     python3 -m tissue_image_processing_tpu_torch.utils.kernel_variants \\
         blur y32,BT_Y=32 c4,BZ_CHUNK=4
+    python3 -m tissue_image_processing_tpu_torch.utils.kernel_variants \\
+        conv s3,TC_MAX_STAGES=3 r2,FC_ROWS=2,FC_THREADS=128 noepilogue [check]
     python3 -m tissue_image_processing_tpu_torch.utils.kernel_variants \
         wrappers          # from any tree's root: its kernels as built
 
 Needs one CUDA card and ``nvcc``; run from the repository root (the inputs
 are those of ``chip_smoke.py``). Each argument after the kernel's name is a
-variant ``name,CONSTANT=value,...``: the source in ``csrc/`` is copied with
-those ``constexpr int`` constants replaced, built into
+variant ``name,CONSTANT=value,...``: the source in ``csrc/`` (or the file
+``SOURCE=<path>`` names, e.g. a parent's) is copied with those ``constexpr
+int`` constants replaced, built into
 ``build/torch_kernels/variants/`` and loaded in place of the library. Every
 variant (and ``base``, the source as it is) is held bit for bit against the
 plain version before it is timed (median of five CUDA-event brackets). For
@@ -23,7 +26,11 @@ the settle, the variant ``counters`` adds ``clock64`` counters to the kernel
 and prints, for a few blocks, the cycles spent in the gate, the tile load,
 the sweeps and the grid sync, with the tile-rounds and sweeps the block ran;
 for the score pass, the cycles a thread of the y pass and one of the x pass
-spent in the z sums, in their pass and at the barrier.
+spent in the z sums, in their pass and at the barrier. For the int8 conv,
+``check`` holds the variants bit for bit at every shape without timing
+them (a first call after a new source), and the variant ``noepilogue``
+drops the tensor-core form's epilogue (its results are WRONG by design):
+its time beside ``base`` is the epilogue's share.
 """
 
 from __future__ import annotations
@@ -38,7 +45,8 @@ import numpy as np
 import torch
 
 from tissue_image_processing_tpu_torch import _device
-from tissue_image_processing_tpu_torch.ops import blur_cuda, flood_cuda
+from tissue_image_processing_tpu_torch.ops import (blur_cuda, conv_s8_cuda,
+                                                   flood_cuda)
 from tissue_image_processing_tpu_torch.projection import fused
 from tissue_image_processing_tpu_torch.utils.synthetic import make_movie
 
@@ -91,6 +99,14 @@ _SCORE_COUNTERS = (
      "prof[1], prof[2], n + 2);\n"),
 )
 _COUNTERS = {"flood": _SETTLE_COUNTERS, "projection": _SCORE_COUNTERS}
+# the int8 conv's tensor-core form without its epilogue (no output: WRONG by
+# design), so that its time against the source's shows the epilogue's cost
+_NO_EPILOGUE = (
+    ("        tc_epilogue<MW, BN, true>(acc, acc1[0], p, t, wg, tid, stg);",
+     "        (void)acc1;"),
+    ("        tc_epilogue<MW, BN, false>(acc, acc[0], p, t, wg, tid, stg);",
+     "        (void)stg;"),
+)
 
 
 def cuda_ms(fn, reps: int = 10) -> float:
@@ -137,20 +153,22 @@ def graph_ms(fn, reps: int = 20) -> float:
 def build_variants(source: str, signatures, specs):
     """Name -> (library, constants, ptxas register lines); all nvcc runs are
     started together."""
-    text = (_device._CSRC / f"{source}.cu").read_text()
     out_dir = _device.BUILD_DIR / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
     for spec in ["base", *specs]:
         name, *pairs = spec.split(",")
         constants = dict(pair.split("=") for pair in pairs)
-        variant = text
+        # SOURCE=<path>: another version of the source (e.g. a parent's)
+        variant = open(constants.pop("SOURCE")).read() if "SOURCE" in \
+            constants else (_device._CSRC / f"{source}.cu").read_text()
         for key, value in constants.items():
             variant, n = re.subn(rf"constexpr int {key} = [^;]+;",
                                  f"constexpr int {key} = {value};", variant)
             assert n == 1, f"{key}: {n} definitions in {source}.cu"
-        if name == "counters":
-            for old, new in _COUNTERS[source]:
+        if name in ("counters", "noepilogue"):
+            edits = _COUNTERS[source] if name == "counters" else _NO_EPILOGUE
+            for old, new in edits:
                 assert variant.count(old) == 1, old
                 variant = variant.replace(old, new)
             variant = "#include <cstdio>\n" + variant
@@ -163,6 +181,7 @@ def build_variants(source: str, signatures, specs):
     built = {}
     for name, (path, constants, proc) in procs.items():
         log, _ = proc.communicate()
+        path.with_suffix(".log").write_text(log)
         if proc.returncode != 0:
             print(f"{name}: build failed\n{log[-1500:]}")
             continue
@@ -309,6 +328,48 @@ def tune_blur(specs) -> None:
     _time_variants("blur3d", blur_cuda._SIGNATURES, specs, cases)
 
 
+def tune_conv(specs) -> None:
+    """The int8 conv at the 11 conv shapes of the depth-3, 128-filter U-Net
+    at B = 8 (``chip_smoke.conv_case``, in the form ``conv3x3_s8`` picks for
+    each): every variant of ``csrc/conv_s8.cu`` (its ``constexpr int`` tile
+    and stage constants: ``TC_MAX_STAGES``, ``TC_SMEM``, ``FC_ROWS`` with
+    ``FC_THREADS``) held bit for bit against the plain version at every
+    shape, twice, then timed by graph replay; one forward's sum of the 14
+    convs and its TOP/s."""
+    import chip_smoke
+
+    check_only = "check" in specs
+    specs = [s for s in specs if s != "check"]
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    cases = []
+    for (side, cin, cout, cs), n in chip_smoke.UNET_CONVS:
+        args, kw, packed = chip_smoke.conv_case(gen, 8, side, cin, cout, cs)
+        cases.append((f"{side}^2 {cin}{'+' + str(cs) if cs else ''}->{cout}",
+                      n, 2.0 * 8 * side * side * 9 * (cin + cs) * cout, args,
+                      kw, packed, chip_smoke.plain_in_slices(*args, **kw)))
+    for name, (lib, constants, regs) in build_variants(
+            "conv_s8", conv_s8_cuda._SIGNATURES, specs).items():
+        _device._libs["conv_s8"] = lib
+        total = ops = 0.0
+        print(f"{name} {constants}: {regs}")
+        for label, n, nops, args, kw, packed, want in cases:
+            def fn():
+                return conv_s8_cuda.conv3x3_s8(*args, packed=packed, **kw)
+
+            exact = torch.equal(fn(), want) and torch.equal(fn(), want)
+            form = conv_s8_cuda.conv_s8_form(args[0].shape[-1], 0 if kw[
+                "skip"] is None else kw["skip"].shape[-1], args[1].shape[0])
+            line = f"  {label} ({form}): {'bit-exact' if exact else 'WRONG'}"
+            if not check_only:
+                ms = graph_ms(fn, reps=5)
+                total, ops = total + n * ms, ops + n * nops
+                line += f", {ms:.4f} ms ({nops / ms / 1e9:.1f} TOP/s)"
+            print(line, flush=True)
+        if not check_only:
+            print(f"  one forward's 14 convs: {total:.4f} ms "
+                  f"({ops / total / 1e9:.1f} TOP/s)")
+
+
 def time_wrappers(_specs) -> None:
     """The score pass, the blur and the settle mask at their main-path shapes
     through the wrappers of whichever package is imported, built as it
@@ -344,7 +405,7 @@ def time_wrappers(_specs) -> None:
 
 
 _TUNERS = {"settle": tune_settle, "project": tune_project, "score": tune_score,
-           "blur": tune_blur, "wrappers": time_wrappers}
+           "blur": tune_blur, "conv": tune_conv, "wrappers": time_wrappers}
 
 
 def main(argv) -> int:
