@@ -91,12 +91,32 @@ Phases (any failure exits non-zero; no phase catches and continues):
    with the reference recipe (depth 2, 128 filters, batch 32, 256^2,
    bfloat16) for 10 steps (steps/s, finite loss) and one float32 step on the
    card against the CPU;
-7. print the kernel table as one JSON object (launches from the Z=30
+7. "files": the file layer and the projection driver. The headline
+   movie's frames tiled 2 x 2 to (8, 2, 30, 2048, 2048) uint16 (4.0 GB)
+   and written through ``MovieStore.create`` / ``write_frame`` into a
+   temporary directory under ``build/`` (removed at the end); the
+   projection CLI (``projection.cli.main``, ``tip-project``) on that
+   ``.npy`` store with the counters zeroed: file-to-file frames/s, its
+   ``StageMetrics`` seconds and ``blur3d``'s launches by shape (3 a frame),
+   its z-maps equal to ``project_movie_array`` on the in-memory array and
+   ``position1.tif`` to those projections as uint16; a 1024^2 crop on the
+   card against the CPU (z-maps >= 99.9% equal, |dz| <= 1, projections
+   rtol 1e-4); ``large_image_projection`` of a (1, 2, 30, 3000, 2600) fixed
+   sample in 1024 tiles (9, 5 ragged), each tile equal to that tile
+   projected alone; ``movie_pipeline_chunked`` fed from a ``MovieStore`` of
+   the headline movie equal to ``movie_pipeline`` on the in-memory array;
+   ``blur3d`` at the driver's three shapes on the path's own inputs, bit
+   for bit against its plain version and timed by graph replay beside
+   ``conv3d``, and on ragged tiles. The TIFF legs run where PIL is
+   installed; the phase prints which optional packages it found;
+8. print the kernel table as one JSON object (launches from the Z=30
    watershed run, the component minimum's from the U-Net run, the int8
    conv's from the int8 U-Net run, with its launches by form — its times
    summed over one forward's 14 convs at B = 8, the generic form's beside
    them, with each shape under ``by_shape`` — and each
-   kernel's launches by function of phase 3), then the
+   kernel's launches by function of phase 3; the blur at the driver's
+   shapes as three rows ``blur3d_driver_*`` with the CLI run's launches),
+   then the
    card's line, and
    as the last line ``{"ok": true, "device": {...}}``.
 
@@ -105,6 +125,8 @@ Imports nothing of JAX or the JAX package.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import importlib
 import json
 import subprocess
@@ -1710,6 +1732,288 @@ def check_ported_functions(frames, card: str):
     return out
 
 
+# the unfused projection's three blurs of a frame at the driver's 2048^2
+# frame size: the pre-blur (0.5, 1, 1), the z-mask blur (1, 2, 2), and the
+# z axis of the 4x-decimated score volume's (0.5, 7.5, 7.5) blur (its y / x
+# axes, 61 taps, take the band matrix)
+def driver_blurs(Z: int, side: int) -> dict:
+    """blur3d's shapes on a (Z, side, side) frame, side >= 512 and a
+    multiple of 4 (the score volume is decimated 4x): (30, 2048, 2048, 5,
+    9, 9), (30, 2048, 2048, 9, 17, 17) and (30, 512, 512, 5, 1, 1) for the
+    files phase's movie."""
+    return {"pre_blur": (Z, side, side, 5, 9, 9),
+            "mask_blur": (Z, side, side, 9, 17, 17),
+            "score_blur": (Z, side // 4, side // 4, 5, 1, 1)}
+
+
+OPTIONAL_PACKAGES = ("PIL", "pandas", "zstandard", "matplotlib")
+
+
+@contextlib.contextmanager
+def capture_blur_inputs(shapes):
+    """While open, the first ``blur3d`` input that ``gaussian_blur`` hands
+    over at each (Z, Y, X, tz, ty, tx) of ``shapes`` is cloned into the dict
+    it yields, with its taps."""
+    from tissue_image_processing_tpu_torch.ops import filters
+
+    seen, orig = {}, filters.blur3d
+
+    def capturing(x, kz, ky, kx):
+        key = (*x.shape, len(kz), len(ky), len(kx))
+        if key in shapes and key not in seen:
+            seen[key] = (x.clone(), kz, ky, kx)
+        return orig(x, kz, ky, kx)
+
+    filters.blur3d = capturing
+    yield seen
+    filters.blur3d = orig
+    assert set(seen) == set(shapes), f"captured {sorted(seen)}"
+
+
+def check_driver_blur(name: str, x, kz, ky, kx, card: str) -> dict:
+    """``blur3d`` at one of the driver's shapes on the path's own input:
+    bit for bit against its plain version, two runs equal; device time by
+    graph replay and by events, the plain version's time and a library
+    yardstick (``conv3d`` with the outer product of the taps over the
+    replicate-padded volume, cuDNN TF32 off)."""
+    import torch
+    import torch.nn.functional as F
+
+    from tissue_image_processing_tpu_torch.ops import blur_cuda
+    from tissue_image_processing_tpu_torch.utils.kernel_variants import graph_ms
+
+    got = blur_cuda.blur3d(x, kz, ky, kx)
+    want = blur_cuda.blur3d_plain(x, kz, ky, kx)
+    torch.testing.assert_close(got, want, rtol=0, atol=0,
+                               msg=f"blur3d ({name}) disagrees with plain")
+    assert torch.equal(blur_cuda.blur3d(x, kz, ky, kx), got), \
+        f"blur3d ({name}): two runs differ"
+    k = [torch.tensor(t, dtype=torch.float32, device=x.device) for t in (kz, ky, kx)]
+    k3 = (k[0][:, None, None] * k[1][None, :, None] * k[2][None, None, :])[None, None]
+    rz, ry, rx = (len(t) // 2 for t in (kz, ky, kx))
+
+    def library():
+        xp = F.pad(x[None, None], (rx, rx, ry, ry, rz, rz), mode="replicate")
+        return F.conv3d(xp, k3)[0, 0]
+
+    prev_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    scale = float(want.abs().max())
+    torch.testing.assert_close(library(), want, rtol=1e-5, atol=1e-5 * scale)
+    lib_ms = cuda_ms(library, 1)  # ~1 s a call for the 9 x 17 x 17 taps
+    torch.backends.cudnn.allow_tf32 = prev_tf32
+    nvox = x.numel()
+    ms = cuda_ms_spread(lambda: blur_cuda.blur3d(x, kz, ky, kx), 10)
+    row = dict(err=max_abs_err(got, want),
+               device_ms=graph_ms(lambda: blur_cuda.blur3d(x, kz, ky, kx)),
+               ms=ms[0], ms_min=ms[1], ms_max=ms[2],
+               plain_ms=cuda_ms(lambda: blur_cuda.blur3d_plain(x, kz, ky, kx), 3),
+               bound=bound(8 * nvox, 2 * (len(kz) + len(ky) + len(kx)) * nvox),
+               library_ms=lib_ms, shape=(*x.shape, len(kz), len(ky), len(kx)))
+    print(f"blur3d {name} {tuple(x.shape)} taps {row['shape'][3:]}: bit-exact "
+          f"(max_abs_err {row['err']:.3g}), two runs equal, device (graph "
+          f"replay) {row['device_ms']:.4f} ms, events {spread(ms)}, plain "
+          f"{row['plain_ms']:.4f} ms, conv3d {lib_ms:.4f} ms, bound "
+          f"{row['bound'][0]:.4f} ms ({row['bound'][1]}) on {card}")
+    return row
+
+
+def check_ragged_blurs():
+    """The tiled blur on ragged tiles of ``large_image_projection`` (952 x
+    552, and an odd 953 x 551 that takes the scalar loads) at the driver's
+    tap counts, bit for bit against the plain version."""
+    import torch
+
+    from tissue_image_processing_tpu_torch.ops import blur_cuda
+    from tissue_image_processing_tpu_torch.ops.filters import gaussian_kernel1d
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for Y, X in ((952, 552), (953, 551)):
+        x = torch.rand((30, Y, X), device="cuda", generator=gen) * 60000
+        for sig in ((0.5, 1.0, 1.0), (1.0, 2.0, 2.0)):
+            taps = [gaussian_kernel1d(s) for s in sig]
+            torch.testing.assert_close(
+                blur_cuda.blur3d(x, *taps), blur_cuda.blur3d_plain(x, *taps),
+                rtol=0, atol=0, msg=f"blur3d ragged {(Y, X)} sigma {sig}")
+            print(f"blur3d ragged (30, {Y}, {X}) taps "
+                  f"{tuple(len(t) for t in taps)}: bit-exact")
+
+
+def check_files(card: str, movie):
+    """The "files" phase: the file layer and the projection driver on the
+    card. ``movie``: the (T, 2, 30, 1024, 1024) uint16 headline movie (sizes
+    below are for it; they scale with its side).
+
+    1. its frames tiled 2 x 2 to (T, 2, 30, 2048, 2048) uint16 (503 MB a
+       frame), written frame by frame through ``MovieStore.create`` /
+       ``write_frame`` into a temporary directory under ``build/``;
+    2. ``project_movie_array`` on the in-memory array (warm-up, and the
+       reference: the blur's inputs at the driver's three shapes captured),
+       then ``tip-project`` (``projection.cli.main``) on the ``.npy`` store
+       with the counters zeroed: file-to-file frames/s, its StageMetrics,
+       ``blur3d``'s launches by shape (3 a frame), the saved z-maps equal
+       to the in-memory ones and ``position1.tif`` to their projections
+       cast to uint16;
+    3. one 1024^2 crop of frame 0 on the card against the CPU;
+    4. ``large_image_projection`` of a (1, 2, 30, 3000, 2600) fixed sample
+       cut from frame 0 tiled 3 x 3, chunk 1024 (9 tiles, 5 ragged): each
+       tile's z-map and projection equal to that tile projected alone;
+    5. ``movie_pipeline_chunked`` fed from a ``MovieStore`` of the headline
+       movie (``.npy``, 4-frame chunks) equal to ``movie_pipeline`` on the
+       in-memory array;
+    The TIFF legs run where PIL is installed. Returns the captured blur
+    inputs by name and ``blur3d``'s launches by shape on the CLI run."""
+    import importlib.util
+    import os
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    import tissue_image_processing_tpu_torch as tipt
+    from tissue_image_processing_tpu_torch.core.pipeline import (
+        movie_pipeline, movie_pipeline_chunked)
+    from tissue_image_processing_tpu_torch.io import tiff
+    from tissue_image_processing_tpu_torch.io.movie import MovieStore
+    from tissue_image_processing_tpu_torch.projection import cli, driver
+    from tissue_image_processing_tpu_torch.utils.runtime import StageMetrics
+
+    found = [m for m in OPTIONAL_PACKAGES if importlib.util.find_spec(m)]
+    pil = "PIL" in found
+    print(f"files: optional packages found {found}, missing "
+          f"{[m for m in OPTIONAL_PACKAGES if m not in found]}; legs run: "
+          + ("CLI to TIFF, large_image_projection, " if pil else
+             "driver on the .npy store (no PIL: no TIFF leg), ")
+          + "card vs CPU, store-fed chunked pipeline, blurs")
+    T, _, Z, H, W = movie.shape
+    side, cut = 2 * H, (3000 * H // 1024, 2600 * W // 1024)
+    blurs = driver_blurs(Z, side)
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build, prefix="smoke_files_") as d:
+        t0 = time.perf_counter()
+        big = np.empty((T, 2, Z, side, side), np.uint16)
+        store = MovieStore.create(os.path.join(d, "m1.npy"), big.shape)
+        for t in range(T):
+            big[t] = np.tile(movie[t], (1, 1, 2, 2))
+            store.write_frame(t, big[t])
+        store.data.flush()
+        del store
+        print(f"files: driver movie {big.shape} uint16, {big.nbytes / 1e9:.3f} "
+              f"GB, written through MovieStore in {time.perf_counter() - t0:.1f} s")
+
+        with capture_blur_inputs(set(blurs.values())) as captured:
+            proj, zmap = driver.project_movie_array(big)
+        torch.cuda.synchronize()
+        print(f"files: expected blur3d launches on the driver run: 3 a frame "
+              f"({3 * T}), one at each of {sorted(blurs.values())}")
+        out = os.path.join(d, "out")
+        os.makedirs(out)
+        metrics = StageMetrics(stream=None)
+        tipt.reset_launches()
+        t0 = time.perf_counter()
+        if pil:
+            rc = cli.main(["-i", d, "-o", out, "-n", "1", "-m", "1", "-r", "0",
+                           "--ext", "npy"], metrics=metrics)
+            assert rc == 0, rc
+        else:
+            with metrics.stage("project"):
+                got_p, got_z = driver.project_movie_array(
+                    MovieStore.open(os.path.join(d, "m1.npy")).data)
+        secs = time.perf_counter() - t0
+        launches = launched({"blur3d": 3 * T})
+        by_shape = blur_launches({s: T for s in blurs.values()})
+        stages = metrics.summary()
+        what = ("tip-project (CLI): .npy store -> position1.tif + zmap_position1.npy"
+                if pil else "project_movie_array on the .npy store")
+        print(f"files: {what}, {T} x 2 x {Z} x {side}^2 uint16: "
+              f"{T / secs:.3f} frames/s file to file ({secs:.3f} s), stage "
+              f"seconds " + ", ".join(f"{k} {v:.4f}" for k, v in stages.items())
+              + f"; launches {launches} on {card}")
+        if pil:
+            got_z = np.load(os.path.join(out, "zmap_position1.npy"))
+            got_p = tiff.read_tiff(os.path.join(out, "position1.tif"))[0]
+            assert got_p.dtype == np.uint16 and np.array_equal(
+                got_p, proj.astype(np.uint16)), "position1.tif != projections"
+            assert sorted(os.listdir(out)) == ["position1.tif",
+                                               "zmap_position1.npy"]
+        else:
+            assert np.array_equal(got_p, proj), "store projections differ"
+        assert np.array_equal(got_z.astype(np.int64), zmap), \
+            "the CLI's z-maps differ from project_movie_array's"
+        assert zmap.shape == (T, side, side) and 0 <= zmap.min() <= zmap.max() < Z
+        print("files: CLI z-maps == project_movie_array on the in-memory "
+              "array" + (", position1.tif == its projections as uint16" if pil
+                         else ""))
+
+        # card against CPU on one H x W crop of frame 0
+        crop = big[:1, :, :, :H, :W]
+        gp, gz = driver.project_movie_array(crop)
+        t0 = time.perf_counter()
+        wp, wz = driver.project_movie_array(crop, device="cpu")
+        cpu_s = time.perf_counter() - t0
+        same = gz == wz
+        assert same.mean() >= 0.999 and np.abs(gz - wz).max() <= 1, \
+            (same.mean(), np.abs(gz - wz).max())
+        sel = np.broadcast_to(same[:, None], gp.shape)
+        np.testing.assert_allclose(gp[sel], wp[sel], rtol=1e-4, atol=1e-3)
+        print(f"files: card vs CPU on a {H} x {W} crop of frame 0: z-maps equal "
+              f"on {same.mean():.6f} (|dz| <= {np.abs(gz - wz).max()}), "
+              f"projections max rel err "
+              f"{float(np.max(np.abs(gp[sel] - wp[sel]) / (np.abs(wp[sel]) + 1e-3))):.3g}"
+              f" (CPU {cpu_s:.1f} s)")
+        del big
+
+        # large_image_projection: 9 tiles of H (1024), 5 ragged
+        fixed = np.ascontiguousarray(
+            np.tile(movie[0], (1, 1, 3, 3))[None, :, :, :cut[0], :cut[1]])
+        np.save(os.path.join(d, "fixed.npy"), fixed)
+        if pil:
+            t0 = time.perf_counter()
+            assert driver.large_image_projection(
+                d, out, "fixed.npy", chunk_size=H) == 1
+            print(f"files: large_image_projection {fixed.shape} chunk {H} in "
+                  f"{time.perf_counter() - t0:.3f} s")
+            lz = np.load(os.path.join(out, "fixed_zmap.npy"))
+            lp = tiff.read_tiff(os.path.join(out, "fixed_projection.tif"))[0]
+            assembled = np.zeros((2,) + cut, np.float32)
+            tiles = []
+            for y0 in range(0, cut[0], H):
+                for x0 in range(0, cut[1], H):
+                    tile = fixed[:, :, :, y0:y0 + H, x0:x0 + H]
+                    tiles.append(tile.shape[-2:])
+                    p1, z1 = driver.project_movie_array(tile)
+                    assert np.array_equal(
+                        lz[0, y0:y0 + H, x0:x0 + H], z1[0]), (y0, x0)
+                    assembled[:, y0:y0 + H, x0:x0 + H] = p1[0]
+            assert len(tiles) == 9 and sum(t != (H, H) for t in tiles) == 5, tiles
+            tiff.save_tiff(os.path.join(d, "want.tif"), assembled, axes="CYX",
+                           data_type="uint16")
+            assert np.array_equal(lp, tiff.read_tiff(os.path.join(d, "want.tif"))[0])
+            print(f"files: large_image_projection 9 tiles {tiles}: z-maps and "
+                  f"projection equal to each tile projected alone")
+
+        # movie_pipeline_chunked fed from a MovieStore
+        np.save(os.path.join(d, "headline.npy"), movie)
+        kw = dict(batch=2, capacity=1024, block_size=101, std=3.0)
+        store = MovieStore.open(os.path.join(d, "headline.npy"))
+        want = movie_pipeline(movie, **kw)
+        got = movie_pipeline_chunked(store, chunk_frames=4, **kw)
+        assert np.array_equal(got["labels"], want["labels"].cpu().numpy())
+        assert np.array_equal(got["ids"], want["ids"])
+        for f in dataclasses.fields(got["tables"]):
+            assert np.array_equal(getattr(got["tables"], f.name).numpy(),
+                                  getattr(want["tables"], f.name).cpu().numpy()), f.name
+        print(f"files: movie_pipeline_chunked from a MovieStore ({movie.shape} "
+              f".npy, 4-frame chunks) == movie_pipeline on the in-memory array "
+              f"(labels, every table field, ids)")
+
+    inputs = {name: captured[shape] for name, shape in blurs.items()}
+    launches = {name: by_shape[f"{shape[:3]} taps {shape[3:]}"]
+                for name, shape in blurs.items()}
+    return inputs, launches
+
+
 def main() -> int:
     import torch
 
@@ -1759,6 +2063,11 @@ def main() -> int:
     check_card_vs_cpu()
     check_keras_weights(card)
     check_training(card)
+    blur_inputs, blur_launches_cli = check_files(card, movie_z30)
+    driver_rows = {name: check_driver_blur(name, *x, card)
+                   for name, x in blur_inputs.items()}
+    del blur_inputs
+    check_ragged_blurs()
 
     table = []
     for name in KERNELS:
@@ -1806,6 +2115,16 @@ def main() -> int:
             **({"launches_by_function": by_caller[name]}
                if name in by_caller else {}),
             **{k: r[k] for k in ("ms_min", "ms_max", "device_ms") if k in r}})
+    for name, r in driver_rows.items():  # blur3d at the driver's shapes
+        table.append({
+            "name": f"blur3d_driver_{name}", "route": "cuda",
+            "source": KERNEL_SOURCE["blur3d"], "replaces": REPLACES["blur3d"],
+            "shape": list(r["shape"]), "launches": blur_launches_cli[name],
+            "max_abs_err": r["err"], "ms": r["device_ms"],
+            "events_ms": r["ms"], "events_ms_min": r["ms_min"],
+            "events_ms_max": r["ms_max"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+            "library_ms": r["library_ms"]})
     print(json.dumps({"kernels": table}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -190,8 +190,36 @@ def test_train_unet_small_on_cpu():
     assert 0.0 <= history["accuracy"][-1] <= 1.0
 
 
-def test_main_reads_npy_only(tmp_path):
-    np.save(tmp_path / "image_0.npy", np.zeros((2, 8, 8), np.float32))
-    (tmp_path / "labels_0.tif").write_bytes(b"")
-    with pytest.raises(NotImplementedError):
-        ttrain.main(["--data-path", str(tmp_path), "--epochs", "1"])
+def test_main_reads_npy_only(tmp_path, monkeypatch):
+    """``main`` reads its frames as the JAX ``main`` does, through
+    ``io/tiff.read_whole_image``: ``.tif`` and ``.npy`` alike (the name is
+    from when the port read ``.npy`` only)."""
+    from tissue_image_processing_tpu_torch.io.tiff import save_tiff
+
+    rng = np.random.default_rng(0)
+    image0 = (rng.random((2, 8, 8)) * 60000).astype(np.uint16)
+    image1 = rng.random((2, 8, 8)).astype(np.float32)
+    labels = rng.integers(0, 3, (2, 8, 8)).astype(np.uint8)
+    save_tiff(str(tmp_path / "image_0.tif"), image0, axes="CYX")
+    np.save(tmp_path / "image_1.npy", image1)
+    save_tiff(str(tmp_path / "labels_0.tif"), labels[0], axes="YX")
+    np.save(tmp_path / "labels_1.npy", labels[1])
+    seen = {}
+
+    def fake_train(images, labels, **kwargs):
+        seen.update(images=images, labels=labels, **kwargs)
+        return None, {"w": torch.zeros(1)}, {"loss": [0.5]}
+
+    monkeypatch.setattr(ttrain, "train_unet", fake_train)
+    out = tmp_path / "out" / "ckpt.pt"
+    assert ttrain.main(["--data-path", str(tmp_path), "--epochs", "1",
+                        "--out", str(out), "--device", "cpu"]) == 0
+    for got, want in zip(seen["images"] + seen["labels"],
+                         [image0, image1, labels[0], labels[1]]):
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+    assert seen["epochs"] == 1 and seen["device"] == "cpu"
+    assert torch.load(str(out))["w"].shape == (1,)
+    (tmp_path / "labels_2.png").write_bytes(b"")
+    with pytest.raises(ValueError, match="unsupported image container"):
+        ttrain.main(["--data-path", str(tmp_path), "--out", str(out)])

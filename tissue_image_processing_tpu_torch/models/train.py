@@ -15,8 +15,9 @@ biased variance and updates its running statistics as Flax does
 are not the JAX package's.
 
 Run: ``python -m tissue_image_processing_tpu_torch.models.train --data-path
-DIR`` with ``image_*.npy`` / ``labels_*.npy`` pairs ((C, Y, X) frames and
-(Y, X) label maps).
+DIR`` with ``image_*`` / ``labels_*`` pairs ((C, Y, X) frames and (Y, X)
+label maps; ``.tif``, ``.npy`` or ``.czi``, read as the JAX ``main`` reads
+them).
 """
 
 from __future__ import annotations
@@ -180,14 +181,13 @@ def save_checkpoint(path: str, state_dict, history: Optional[dict] = None
 
 
 def _read_frames(pattern: str) -> List[np.ndarray]:
+    """Every file matching ``pattern``, in name order, through
+    ``io/tiff.read_whole_image`` (``.tif`` / ``.tiff``, ``.npy``, ``.czi``)."""
     import glob
 
-    files = sorted(glob.glob(pattern))
-    other = [f for f in files if not f.endswith(".npy")]
-    if other:
-        # TIFF reading comes with the port of io/ (ROADMAP section 1, item 3)
-        raise NotImplementedError(f"only .npy frames are read, got {other[0]}")
-    return [np.load(f) for f in files]
+    from tissue_image_processing_tpu_torch.io.tiff import read_whole_image
+
+    return [read_whole_image(f)[0] for f in sorted(glob.glob(pattern))]
 
 
 def main(argv=None) -> int:

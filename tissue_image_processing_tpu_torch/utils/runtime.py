@@ -1,0 +1,115 @@
+"""Runtime helpers: profiling traces, stage timers and structured stage
+metrics.
+
+Port of ``tissue_image_processing_tpu/utils/runtime.py``. ``trace`` is a
+``torch.profiler`` context (CPU activity, and CUDA where a card is present)
+that writes a Chrome trace into its directory. ``Timer`` and
+``StageMetrics`` are the JAX package's. ``enable_compilation_cache`` has no
+counterpart here: the CUDA kernels are cached by source hash in
+``build/torch_kernels/`` (``_device.build_kernels``) and PyTorch compiles
+nothing else.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import time
+
+__all__ = ["trace", "Timer", "StageMetrics"]
+
+_DEFAULT_TRACE_DIR = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.dirname(os.path.abspath(__file__)))), "build", "torch_trace")
+
+
+@contextlib.contextmanager
+def trace(log_dir: str = _DEFAULT_TRACE_DIR):
+    """``torch.profiler`` trace of the block; on exit a Chrome trace
+    (``*.pt.trace.json``, for Perfetto / ``chrome://tracing`` / TensorBoard)
+    is written into ``log_dir``. Yields the profiler, whose
+    ``key_averages()`` sums the block's time by operator and kernel."""
+    import torch
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(log_dir)) as prof:
+        yield prof
+
+
+def _host_read(result) -> None:
+    """Read one element of ``result`` back to the host: for a tensor on the
+    card this waits for the work that produced it."""
+    import numpy as np
+    import torch
+
+    if isinstance(result, torch.Tensor):
+        result.reshape(-1)[:1].cpu()
+    else:
+        np.asarray(result).ravel()[:1]
+
+
+class Timer:
+    """Wall-clock stage timer with a synchronizing host read."""
+
+    def __init__(self):
+        self.stages = {}
+
+    @contextlib.contextmanager
+    def stage(self, name: str, result=None):
+        t0 = time.time()
+        yield
+        if result is not None:
+            _host_read(result)
+        self.stages[name] = self.stages.get(name, 0.0) + time.time() - t0
+
+    def report(self) -> str:
+        return ", ".join(f"{k}={v * 1000:.0f}ms" for k, v in self.stages.items())
+
+
+class StageMetrics:
+    """Structured per-stage metrics for pipeline drivers (SURVEY §5.5: the
+    reference only has prints; here every driver stage emits one JSON line —
+    ``{"event": ..., "stage": ..., "seconds": ..., **fields}`` — to a stream
+    and keeps an in-memory record, so batch runs are machine-parseable).
+    """
+
+    def __init__(self, stream=None, run: str = ""):
+        import sys
+
+        self.stream = stream if stream is not None else sys.stderr
+        self.run = run
+        self.records = []
+
+    def emit(self, event: str, **fields):
+        import json
+
+        rec = {"event": event, **({"run": self.run} if self.run else {}),
+               **fields}
+        self.records.append(rec)
+        if self.stream:
+            print(json.dumps(rec), file=self.stream, flush=True)
+
+    @contextlib.contextmanager
+    def stage(self, name: str, **fields):
+        t0 = time.time()
+        try:
+            yield
+        except Exception as e:
+            self.emit("stage_error", stage=name,
+                      seconds=round(time.time() - t0, 4),
+                      error=f"{type(e).__name__}: {e}", **fields)
+            raise
+        self.emit("stage", stage=name, seconds=round(time.time() - t0, 4),
+                  **fields)
+
+    def summary(self) -> dict:
+        out = {}
+        for r in self.records:
+            if r.get("event") == "stage":
+                out[r["stage"]] = out.get(r["stage"], 0.0) + r["seconds"]
+        return out
