@@ -36,7 +36,8 @@ Phases (any failure exits non-zero; no phase catches and continues):
    the depth-3, 128-filter network on eight 1024^2 frames, the int8 main
    path's batch (single and split convs, Cin = 2 included), in the form it
    picks for the shape (tensor core or first conv) and in the generic form,
-   against its plain version and a ``torch._int_mm`` route, the two forms
+   against its plain version and a ``torch._int_mm`` route (each case's
+   inputs checksummed before and after), the two forms
    timed in turns (generic, picked, picked, generic) beside cuDNN's
    bfloat16 conv of the same shape. The blur, the diffusions, the component
    minimum, the settle mask, the settle (labels AND arrival stamps), both
@@ -109,7 +110,17 @@ Phases (any failure exits non-zero; no phase catches and continues):
    for bit against its plain version and timed by graph replay beside
    ``conv3d``, and on ragged tiles. The TIFF legs run where PIL is
    installed; the phase prints which optional packages it found;
-8. print the kernel table as one JSON object (launches from the Z=30
+8. "tissue": the ``Tissue`` session (``check_tissue``). The headline raw
+   movie's ``movie_pipeline`` output populates a session on the card as
+   the JAX package's ``cmd_pipeline`` does (one stacked read-back of the
+   tables); each session step is timed with its kernel launches (none of
+   its own): cell types (and the peak-gated form), their repair, events,
+   contact matrices, every feature name, re-tracking from images, an edit
+   with two undos (bit for bit), ``.seg`` save and load (equal); the same
+   steps on a CPU session are held to the card's (exact but the float
+   features, 1e-5, and the re-tracked drifts, one 0.01 px bin); planted
+   events at 2000 cells on 1024^2 are found, none on a static tissue;
+9. print the kernel table as one JSON object (launches from the Z=30
    watershed run, the component minimum's from the U-Net run, the int8
    conv's from the int8 U-Net run, with its launches by form — its times
    summed over one forward's 14 convs at B = 8, the generic form's beside
@@ -1080,7 +1091,8 @@ def check_conv_s8(card: str, B: int = 8):
 
     from tissue_image_processing_tpu_torch.ops.conv_s8_cuda import (
         _conv3x3_s8, conv3x3_s8, conv_s8_form)
-    from tissue_image_processing_tpu_torch.utils.kernel_variants import graph_ms
+    from tissue_image_processing_tpu_torch.utils.kernel_variants import (
+        checksum, graph_ms)
 
     gen = torch.Generator(device="cuda").manual_seed(8)
     total = dict(ms=0.0, ms_2=0.0, generic_ms=0.0, generic_ms_2=0.0,
@@ -1092,6 +1104,9 @@ def check_conv_s8(card: str, B: int = 8):
         x, wq, wscale, bias, shift, s0, so = args
         skip, s1 = kw["skip"], kw["skip_scale"]
         form = conv_s8_form(cin, cs, cout)
+        inputs = [t for t in (*args, *kw.values(), *packed)
+                  if isinstance(t, torch.Tensor)]
+        sums = [checksum(t) for t in inputs]
 
         def picked():
             return conv3x3_s8(*args, packed=packed, **kw)
@@ -1130,6 +1145,8 @@ def check_conv_s8(card: str, B: int = 8):
         row["bound_ms"], row["bound_by"] = bound_int8(nbytes, ops)
         row["tops"] = ops / row["device_ms"] / 1e9
         row["generic_tops"] = ops / row["generic_ms"] / 1e9
+        assert [checksum(t) for t in inputs] == sums, \
+            f"conv3x3_s8 {side} {cin}+{cs}->{cout}: the case's inputs changed"
         shapes.append(row)
         for k in ("plain_ms", "library_ms", "library_bf16_ms", "bound_ms",
                   "generic_ms", "generic_ms_2", "device_ms_2"):
@@ -1139,8 +1156,8 @@ def check_conv_s8(card: str, B: int = 8):
         total["nbytes"] += times * nbytes
         print(f"conv3x3_s8 B={B} {side}^2 {cin}{'+' + str(cs) if cs else ''}"
               f"->{cout} ({form} form): bit-exact vs plain, the generic form "
-              f"and the _int_mm route, two runs equal, {levels} output "
-              f"levels; device {row['device_ms']:.4f} / "
+              f"and the _int_mm route, two runs equal, inputs unchanged "
+              f"(checksums), {levels} output levels; device {row['device_ms']:.4f} / "
               f"{row['device_ms_2']:.4f} ms ({row['tops']:.1f} TOP/s, "
               f"{row['bound_ms'] / row['device_ms']:.3f} of the bound), "
               f"generic form {row['generic_ms']:.4f} / "
@@ -1149,7 +1166,7 @@ def check_conv_s8(card: str, B: int = 8):
               f"{row['library_ms']:.4f}, cuDNN bf16 "
               f"{row['library_bf16_ms']:.4f}, bound {row['bound_ms']:.4f} ms "
               f"({row['bound_by']}) on {card}")
-        del x, skip, got, want, lib, xb, args, kw
+        del x, skip, got, want, lib, xb, args, kw, inputs
     total_bound = bound_int8(total["nbytes"], total["ops"])
     print(f"conv3x3_s8, one forward's 14 convs at B={B}: device "
           f"{total['ms']:.4f} / {total['ms_2']:.4f} ms "
@@ -2014,6 +2031,381 @@ def check_files(card: str, movie):
     return inputs, launches
 
 
+TISSUE_CPU_FULL_S = 60.0   # the CPU twin runs every frame below this, else 3
+
+
+def tissue_steps(tissue, markers, refs, frame: int, timed):
+    """The session steps of the "tissue" phase on one ``Tissue`` (card or
+    CPU), each wrapped in ``timed(name, fn)``; returns what each produced.
+    ``markers`` / ``refs``: (T, X, Y) projected atoh and reference frames
+    in the labels' x-major space, as numpy."""
+    from tissue_image_processing_tpu_torch.core import frame_data as FD
+    from tissue_image_processing_tpu_torch.core.editing import (
+        SegmentationEditor)
+
+    T = tissue.number_of_frames
+    out = {}
+
+    def classify():
+        for f in range(1, T + 1):
+            tissue.calc_cell_types(markers[f - 1], f, "HC", threshold=0.3)
+
+    timed("calc_cell_types", classify, T)
+    timed("fix_cell_types_after_tracking",
+          lambda: tissue.fix_cell_types_after_tracking(
+              min_frame_for_diff_detection=3), T)
+    timed("find_events", lambda: tissue.find_events(), max(T - 1, 1))
+    out["contact"] = timed(
+        "calc_neighbors_contact_matrix",
+        lambda: [tissue.calc_neighbors_contact_matrix(f) for f in range(1, T + 1)],
+        T)
+    side = tissue.get_labels(1).shape[0]
+    tissue.add_event("ablation", frame, min(frame + 1, T),
+                     start_pos=(side // 2, side // 2))
+    mask = tissue.get_valid_non_edge_mask(frame)
+    names = (FD.COLUMN_FEATURES + FD.SPECIAL_FEATURES + FD.SPATIAL_FEATURES
+             + FD.SPECIAL_X_ONLY_FEATURES + FD.GLOBAL_FEATURES)
+    out["features"] = timed("get_frame_data", lambda: {
+        name: FD.get_frame_data(tissue, frame, name, mask)[0] for name in names}, 1)
+    timed("track_cells", lambda: tissue.track_cells(images=refs), T)
+    out["ids"] = np.stack([tissue.get_cells_info(f).label.cpu().numpy()
+                           for f in range(1, T + 1)])
+
+    # editing: split the largest interior cell of the frame, remove a
+    # boundary line beside it, undo both: bit for bit at each depth
+    table = tissue.get_cells_info(frame)
+    labels = tissue.get_labels(frame)
+    area = np.where(mask, table.area.cpu().numpy(), 0)
+    cell = int(area.argmax()) + 1
+    ys, xs = np.nonzero(labels == cell)
+    mid = int(np.median(ys))
+    row, upper = xs[ys == mid], xs[ys == mid - 3]
+    before = (labels.copy(), tissue.get_cell_types(frame).copy(),
+              host_fields(table))
+
+    def edit():
+        ed = SegmentationEditor(tissue)
+        ed.add_segmentation_line(frame, (int(row.min()), mid), initial=True)
+        ed.add_segmentation_line(frame, (int(row.max()), mid),
+                                 point2=(int(row.min()), mid))
+        ed.add_segmentation_line(frame, (int(row.max()), mid), final=True)
+        split = tissue.get_labels(frame).copy()
+        # the line on the cell's right, beside its upper half
+        ed.remove_segmentation_line(frame, (int(upper.max()) + 1, mid - 3))
+        merged = tissue.get_labels(frame).copy()
+        undone = (ed.undo_last_action(frame), ed.undo_last_action(frame))
+        return split, merged, undone
+
+    split, merged, undone = timed("editing (add, remove, 2 undos)", edit, 1)
+    assert undone == (1, 1), undone
+    assert (split != before[0]).any() and (merged != split).any(), \
+        "the edits changed nothing"
+    now = host_fields(tissue.get_cells_info(frame))
+    assert np.array_equal(tissue.get_labels(frame), before[0]) and \
+        np.array_equal(tissue.get_cell_types(frame), before[1]) and all(
+            np.array_equal(now[k], v) for k, v in before[2].items()), \
+        "undo is not bit for bit"
+    out["edits"] = (split, merged)
+    return out
+
+
+def host_fields(table) -> dict:
+    return {f.name: getattr(table, f.name).cpu().numpy()
+            for f in dataclasses.fields(table)}
+
+
+def sorted_events(df):
+    return df.sort_values(["type", "start_frame", "cell_id"],
+                          kind="stable").reset_index(drop=True)
+
+
+def session_contents(tissue) -> dict:
+    """Every artifact of a session as host arrays (tables as their fields)."""
+    T = tissue.number_of_frames
+    return {
+        "labels": [tissue.get_labels(f) for f in range(1, T + 1)],
+        "types": [tissue.get_cell_types(f) for f in range(1, T + 1)],
+        "tables": [host_fields(tissue.get_cells_info(f))
+                   for f in range(1, T + 1)],
+        "events": sorted_events(tissue.get_events()),
+        "drifts": tissue.drifts, "valid_frames": tissue.valid_frames,
+        "names": (tissue.type_names, tissue.channel_names, tissue.fake_channels)}
+
+
+def assert_contents_equal(a: dict, b: dict, what: str, drift_atol: float = 0.0):
+    for key in ("labels", "types"):
+        for f, (x, y) in enumerate(zip(a[key], b[key])):
+            assert np.array_equal(x, y), f"{what}: {key} of frame {f + 1}"
+    for f, (x, y) in enumerate(zip(a["tables"], b["tables"])):
+        for k in y:
+            assert np.array_equal(x[k], y[k]), f"{what}: {k} of frame {f + 1}"
+    import pandas as pd
+    pd.testing.assert_frame_equal(a["events"], b["events"], check_dtype=False,
+                                  obj=f"{what}: events")
+    assert np.allclose(a["drifts"], b["drifts"], rtol=0, atol=drift_atol), what
+    assert np.array_equal(a["valid_frames"], b["valid_frames"]), what
+    assert a["names"] == b["names"], what
+
+
+def check_tissue(card: str, movie, device: str = "cuda", side: int = 1024,
+                 n_cells: int = 2000):
+    """The "tissue" phase: the ``Tissue`` session on the card, fed by
+    ``movie_pipeline`` as the JAX package's ``cmd_pipeline`` feeds it.
+
+    1. ``movie_pipeline`` on ``movie`` (the headline raw movie, watershed
+       branch, capacity 1024) and the projections of both channels (the
+       reference frames and the atoh marker), the feed; one stacked
+       read-back of labels and tables, then ``set_labels``,
+       ``apply_track_ids`` and the drifts into a session on the card (its
+       tables stay on the host, as ``cmd_pipeline`` keeps them; the steps
+       compute on the card). Then each step timed (host clock,
+       synchronised) with its hand-written kernel launches (none expected):
+       ``calc_cell_types`` on every frame, ``fix_cell_types_after_tracking``,
+       ``find_events``, the contact matrices, ``get_frame_data`` for every
+       feature name on frame 4, ``track_cells(images=...)`` on the
+       reference frames, a ``SegmentationEditor`` add-line, remove-line and
+       two undos (bit for bit), ``save`` to a ``.seg`` under ``build/`` and
+       ``load`` (every artifact equal), then the peak-gated classification
+       (``peak_window_size=5``) of frame 1 under its own type name;
+    2. the same steps from the same labels on a CPU session (every frame,
+       or the first 3 when a probe says all of them would pass
+       ``TISSUE_CPU_FULL_S``): tables, types, ids, events, integer features,
+       contact matrices, edits and every member of the archives but the
+       drifts exact, float features 1e-5, the drifts of ``track_cells``
+       within one bin of the 100x upsampled phase correlation (0.01 px
+       and float32 rounding; printed); the peak-gated types'
+       agreement printed (>= 99.9% of cells) and ``track_cells``' ids
+       against the pipeline's (printed, not gated);
+    3. ``make_tracked_tissue`` at production density (8 frames, ``side``^2,
+       ``n_cells`` cells; capacity 2048 at 2000) with its tables on the card
+       and a planted delamination, division and differentiation (seeds
+       n/2, n/2 - 20 and n/2 + 20: ids 1001, 981 and 1021 at 2000): each
+       found under its type with its planted id, none on a static tissue of
+       that size; ``find_events`` ms per frame pair,
+       ``second_order_neighbors_from_type`` and ``spatial_map`` ms.
+    ``device``, ``side`` and ``n_cells`` exist for a dry run on the CPU at
+    a small size; the smoke run takes the defaults."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    import tissue_image_processing_tpu_torch as tipt
+    from tissue_image_processing_tpu_torch.core import features as F
+    from tissue_image_processing_tpu_torch.core.pipeline import (
+        _projections, movie_pipeline)
+    from tissue_image_processing_tpu_torch.core.tissue import Tissue
+    from tissue_image_processing_tpu_torch.utils.synthetic import (
+        make_tracked_tissue)
+
+    dev = torch.device(device)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    t_phase = time.perf_counter()
+    T = movie.shape[0]
+    cap = 1024
+    tipt.reset_launches()
+    out = movie_pipeline(movie, batch=2, capacity=cap, block_size=101, std=3.0,
+                         device=dev)
+    prj = _projections(movie, 0, dev)            # (T, 2, Y, X): reference, atoh
+    refs = prj[:, 0].transpose(1, 2).contiguous().cpu().numpy()
+    markers = prj[:, 1].transpose(1, 2).contiguous().cpu().numpy()
+    sync()
+    feed = {k: v for k, v in tipt.LAUNCHES.items() if v}
+    labels = out["labels"].cpu().numpy()
+    host = out["tables"].map(lambda t: t.cpu())  # one stacked read-back
+    print(f"tissue: fed by movie_pipeline {tuple(movie.shape)} and the "
+          f"projections of both channels; the feed's launches {feed}")
+
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build, prefix="smoke_tissue_") as d:
+        def populate(on, frames):
+            t = Tissue(frames, str(Path(d) / f"session_{on}"),
+                       channel_names=["zo", "atoh"], capacity=cap, device=on)
+            for f in range(1, frames + 1):
+                t.set_labels(f, labels[f - 1].copy(), reset_data=True)
+                t.apply_track_ids(f, host.map(lambda x: x[f - 1].clone()),
+                                  out["ids"][f - 1],
+                                  host.valid_mask()[f - 1].numpy())
+            t.drifts[:] = out["drifts"][:frames]
+            return t
+
+        def run(tissue, frames, record):
+            def timed(name, fn, per):
+                if record is not None:
+                    sync()
+                    tipt.reset_launches()
+                t0 = time.perf_counter()
+                res = fn()
+                if record is not None:
+                    sync()
+                    record[name] = ((time.perf_counter() - t0) * 1e3 / per,
+                                    launched({}))
+                return res
+
+            res = tissue_steps(tissue, markers[:frames], refs[:frames],
+                               min(4, frames), timed)
+            seg = str(Path(d) / f"{tissue.device.type}.seg")
+            timed(".seg save", lambda: list(tissue.save(seg)), frames)
+            back = Tissue(frames, str(Path(d) / f"back_{tissue.device.type}"),
+                          capacity=cap, device=tissue.device)
+            timed(".seg load", lambda: list(back.load(seg)), frames)
+            res["contents"] = session_contents(tissue)
+            # load() drops duplicated event rows, as the JAX package's does
+            saved = dict(res["contents"], events=sorted_events(
+                tissue.get_events().drop_duplicates(ignore_index=True)))
+            assert_contents_equal(session_contents(back), saved,
+                                  f".seg round trip ({tissue.device.type})")
+            back.clean_up()
+            timed("calc_cell_types (peak_window_size=5)",
+                  lambda: tissue.calc_cell_types(markers[0], 1, "HCpeak",
+                                                 threshold=0.3,
+                                                 peak_window_size=5), 1)
+            res["peak"] = tissue.get_cells_info(1).type.cpu().numpy()
+            res["seg"] = zipfile_contents(seg)
+            return res
+
+        # the CPU twin takes every frame unless a probe (one frame's
+        # classification and contact matrix) says that would pass the limit
+        t0 = time.perf_counter()
+        probe = populate("cpu", 1)
+        probe.calc_cell_types(markers[0], 1, "HC", threshold=0.3)
+        probe.calc_neighbors_contact_matrix(1)
+        estimate = (time.perf_counter() - t0) * T * 4
+        probe.clean_up()
+        frames = T if estimate < TISSUE_CPU_FULL_S else 3
+
+        card_s = populate(device, T)
+        steps = {}
+        t0 = time.perf_counter()
+        got = run(card_s, T, steps)
+        card_total = time.perf_counter() - t0
+        for name, (ms, launches) in steps.items():
+            print(f"tissue (card): {name} {ms:.3f} ms per frame "
+                  f"(hand-written kernel launches: {launches or 'none'}) on {card}")
+        print(f"tissue (card): {T} frames, capacity {cap}: every step "
+              f"{card_total:.3f} s; undo bit for bit; .seg save + load equal "
+              f"on {card}")
+        card_s.clean_up()
+        if frames < T:   # the card again, on the CPU's frames
+            card_s = populate(device, frames)
+            got = run(card_s, frames, None)
+            card_s.clean_up()
+        cpu_s = populate("cpu", frames)
+        t0 = time.perf_counter()
+        want = run(cpu_s, frames, None)
+        cpu_total = time.perf_counter() - t0
+        cpu_s.clean_up()
+
+    # the drifts come from phase correlation upsampled 100x: the card's and
+    # the CPU's FFTs may pick neighbouring bins of a flat peak, one bin
+    # (0.01 px, plus the float32 rounding of the shifts) apart
+    drift_err = float(np.abs(got["contents"]["drifts"]
+                             - want["contents"]["drifts"]).max())
+    assert_contents_equal(got["contents"], want["contents"], "card vs CPU",
+                          drift_atol=0.01 + 1e-5)
+    for f, (a, b) in enumerate(zip(got["contact"], want["contact"])):
+        assert np.array_equal(a, b), f"contact matrix of frame {f + 1}"
+    for a, b in zip(got["edits"], want["edits"]):
+        assert np.array_equal(a, b), "edits differ"
+    n_float = 0
+    for name, w in want["features"].items():
+        g = got["features"][name]
+        if hasattr(w, "to_numpy"):   # the 'neighbors by type' DataFrame
+            assert list(g.columns) == list(w.columns), name
+            g, w = g.to_numpy(), w.to_numpy()
+        g, w = np.asarray(g), np.asarray(w)
+        if w.dtype.kind == "f":
+            n_float += 1
+            assert np.allclose(g, w, rtol=1e-5, atol=1e-6), name
+        else:
+            assert np.array_equal(g, w), name
+    members = got["seg"]
+    assert members.keys() == want["seg"].keys()
+    exact = sorted(k for k in members if k != "drifts.npy")
+    for k in exact:
+        assert members[k] == want["seg"][k], f".seg member {k} differs"
+    exists = got["contents"]["tables"][0]["empty_cell"] == 0
+    peak_same = float((got["peak"] == want["peak"])[exists].mean())
+    assert peak_same >= 0.999, peak_same
+    pipe = np.where(host.valid_mask()[:frames].numpy(), out["ids"][:frames], 0)
+    valid = pipe > 0
+    agree = float((got["ids"][valid] == pipe[valid]).mean())
+    which = ("every frame" if frames == T else
+             f"the first 3: all {T} were estimated at {estimate:.0f} s > "
+             f"{TISSUE_CPU_FULL_S:.0f} s")
+    print(f"tissue: card == CPU on {frames} of {T} frames ({which}; CPU "
+          f"{cpu_total:.1f} s): tables, types, ids, events, contact matrices, "
+          f"edits and integer features exact, {n_float} float features within "
+          f"1e-5, {len(got['contents']['events'])} events equal, drifts "
+          f"within {drift_err:.6g} px, {len(exact)} of {len(members)} .seg "
+          f"members byte for byte (all but drifts.npy); peak-gated "
+          f"types agree on {peak_same:.6f} of {int(exists.sum())} cells; "
+          f"track_cells ids == the pipeline's on {agree:.6f} of "
+          f"{int(valid.sum())} cells on {card}")
+
+    # production density with planted events, tables on the card
+    mid = n_cells // 2
+    t0 = time.perf_counter()
+    tissue, info = make_tracked_tissue(
+        n_frames=8, size=side, n_cells=n_cells, seed=3,
+        delaminate=[(mid, 4)], divide=[(mid - 20, 5)],
+        differentiate=[(mid + 20, 5)], device=dev)
+    made = time.perf_counter() - t0
+    assert tissue.get_cells_info(1).area.device.type == dev.type
+    tipt.reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    tissue.find_events()
+    events_ms = (time.perf_counter() - t0) * 1e3 / 7
+    launched({})
+    ev = tissue.get_events()
+    for kind, cid in (("delamination", mid + 1), ("division", mid - 19),
+                      ("differentiation", mid + 21)):
+        assert cid in set(ev.query(f'type == "{kind}"').cell_id.astype(int)), \
+            (kind, ev.to_string())
+    daughter = info["division"][0][0]
+    assert daughter in set(ev.query('type == "division"').daughter_id.astype(int))
+    table = tissue.get_cells_info(4)
+    mask = table.valid_mask()
+    timer = cuda_ms if dev.type == "cuda" else host_ms
+    so_ms = timer(lambda: F.second_order_neighbors_from_type(table, 0, True), 5)
+    sm_ms = timer(lambda: F.spatial_map(table, (side, side), 100.0, 16,
+                                        mask.float(), mask, "density"), 5)
+    static, _ = make_tracked_tissue(n_frames=4, size=side, n_cells=n_cells,
+                                    seed=3, device=dev)
+    static.find_events()
+    assert len(static.get_events()) == 0, static.get_events().to_string()
+    print(f"tissue: make_tracked_tissue 8 x {side}^2, {n_cells} cells, capacity "
+          f"{tissue.capacity} ({made:.1f} s): planted delamination {mid + 1}, "
+          f"division {mid - 19} (daughter {daughter}) and differentiation "
+          f"{mid + 21} found among {len(ev)} events; none on a static tissue; "
+          f"find_events {events_ms:.3f} ms per frame pair, "
+          f"second_order_neighbors_from_type {so_ms:.4f} ms, spatial_map "
+          f"({-(-side // 16)}^2 grid) {sm_ms:.4f} ms on {card}")
+    print(f"tissue: phase {time.perf_counter() - t_phase:.1f} s on {card}")
+
+
+def host_ms(fn, reps: int) -> float:
+    """Median host-clock ms of ``reps`` calls (the dry run on the CPU)."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def zipfile_contents(path: str) -> dict:
+    import zipfile
+    with zipfile.ZipFile(path) as z:
+        return {n: z.read(n) for n in z.namelist()}
+
+
 def main() -> int:
     import torch
 
@@ -2064,6 +2456,7 @@ def main() -> int:
     check_keras_weights(card)
     check_training(card)
     blur_inputs, blur_launches_cli = check_files(card, movie_z30)
+    check_tissue(card, movie_z30)
     driver_rows = {name: check_driver_blur(name, *x, card)
                    for name, x in blur_inputs.items()}
     del blur_inputs

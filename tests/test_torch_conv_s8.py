@@ -1,6 +1,8 @@
 """The int8 3x3 conv kernel's three forms (``ops/conv_s8_cuda.py``).
 
-CPU: which form each shape takes (the int8 U-Net's main path: 13 of its 14
+CPU: the tuner's diagnostics of a WRONG reading (``utils/kernel_variants.py``:
+the first differing element and the input checksums); which form each shape
+takes (the int8 U-Net's main path: 13 of its 14
 convs on the tensor-core form, the first conv on the first-conv form; the
 narrow test networks and odd channel counts on the generic form), and the
 tensor-core form's persistent tile order, which must cover every output
@@ -25,6 +27,41 @@ from tissue_image_processing_tpu_torch.ops import conv_s8_cuda as tconv
 # one intra-op thread: the test workers share the cores with each other
 # and with XLA's device threads
 torch.set_num_threads(1)
+
+
+def test_first_difference_and_checksum():
+    """The tuner's WRONG diagnostics: the first differing element in
+    row-major order (index, got, want), None for equal tensors, the shapes
+    when they differ; a checksum that changes with any one byte and
+    ignores nothing of a tensor whose size is not a multiple of four."""
+    from tissue_image_processing_tpu_torch.utils.kernel_variants import (
+        checksum, first_difference)
+
+    gen = torch.Generator().manual_seed(3)
+    want = torch.randint(-128, 128, (2, 5, 7, 3), generator=gen,
+                         dtype=torch.int8)
+    got = want.clone()
+    assert first_difference(got, want) is None
+    got[1, 4, 2, 1] += 1
+    got[1, 4, 6, 0] -= 3
+    assert first_difference(got, want) == (
+        (1, 4, 2, 1), int(want[1, 4, 2, 1]) + 1 if want[1, 4, 2, 1] < 127
+        else -128, int(want[1, 4, 2, 1]))
+    assert first_difference(got[:1], want) == ("shape", (1, 5, 7, 3),
+                                               (2, 5, 7, 3))
+    base = checksum(want)
+    assert checksum(want.clone()) == base
+    flat = want.reshape(-1)
+    for k in (0, 3, flat.numel() - 1):     # the last byte lies in a padded word
+        changed = flat.clone()
+        changed[k] ^= 1
+        assert checksum(changed.reshape(want.shape)) != base, k
+    swapped = flat.clone()
+    swapped[[4, 8]] = flat[[8, 4]]
+    if flat[4] != flat[8]:
+        assert checksum(swapped) != checksum(flat)
+    f = torch.rand(9, generator=gen)
+    assert checksum(f) == checksum(f.clone()) != checksum(f + 1)
 
 
 def test_main_path_forms():

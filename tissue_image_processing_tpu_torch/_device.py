@@ -27,7 +27,7 @@ import torch
 __all__ = ["LAUNCHES", "BLUR_LAUNCHES", "CONV_LAUNCHES", "KERNEL_SOURCES",
            "resolve_device", "build_kernels", "load_library", "reset_launches",
            "check_cuda", "ptr", "stream_ptr", "require_cuda_tensor",
-           "host_to_device", "host_floats"]
+           "host_to_device", "host_floats", "to_host"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
@@ -65,6 +65,24 @@ def host_to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
     if torch.device(device).type != "cuda":
         return t.to(device)
     return t.pin_memory().to(device, non_blocking=True)
+
+
+def to_host(*tensors: torch.Tensor) -> list:
+    """numpy copies of ``tensors`` through ONE synchronisation: each card
+    tensor is copied without blocking into a pinned buffer, then the
+    current stream is synchronised once (a CPU tensor is read as it is)."""
+    bufs, synced = [], False
+    for t in tensors:
+        if t.device.type == "cuda":
+            buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            buf.copy_(t, non_blocking=True)
+            bufs.append(buf)
+            synced = True
+        else:
+            bufs.append(t)
+    if synced:
+        torch.cuda.current_stream().synchronize()
+    return [b.numpy() for b in bufs]
 
 
 def host_floats(values: Iterable[float]) -> ctypes.Array:

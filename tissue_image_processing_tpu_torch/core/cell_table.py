@@ -23,6 +23,7 @@ from tissue_image_processing_tpu_torch.ops.regionprops import regionprops
 
 __all__ = ["CellTable", "frame_cellinfo", "frame_cellinfo_checked",
            "stack_tables", "is_positive_for_type", "change_type",
+           "to_numpy", "replace_fields",
            "CELL_INFO_COLUMNS", "INVALID_TYPE_INDEX"]
 
 INVALID_TYPE_INDEX = 255
@@ -179,6 +180,27 @@ class CellTable:
         """Apply ``fn`` to every field (e.g. slicing or ``.cpu()``)."""
         return CellTable(**{f.name: fn(getattr(self, f.name))
                             for f in dataclasses.fields(self)})
+
+
+def to_numpy(x) -> np.ndarray:
+    """A host numpy array of a tensor (read from the card if it lives there)
+    or of anything ``np.asarray`` takes."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def replace_fields(table: CellTable, **fields) -> CellTable:
+    """``dataclasses.replace`` with each new field (numpy or tensor) cast to
+    the field's dtype on the device of the table's own tensor: a table on
+    the CPU stays on the CPU, one on the card on the card."""
+    out = {}
+    for name, value in fields.items():
+        old = getattr(table, name)
+        if not isinstance(value, torch.Tensor):
+            value = torch.from_numpy(np.ascontiguousarray(value))
+        out[name] = value.to(device=old.device, dtype=old.dtype)
+    return dataclasses.replace(table, **out)
 
 
 def stack_tables(tables: List[CellTable], cat: bool = False) -> CellTable:

@@ -11,7 +11,7 @@ by ``scatter_reduce`` min/max.
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -65,12 +65,16 @@ def perimeter_map(labels: torch.Tensor) -> torch.Tensor:
             + b[code].to(torch.float32) * _SQRT2) / 2.0
 
 
-def regionprops(labels: torch.Tensor, num_labels: int) -> Dict[str, torch.Tensor]:
+def regionprops(labels: torch.Tensor, num_labels: int,
+                intensity: Optional[torch.Tensor] = None
+                ) -> Dict[str, torch.Tensor]:
     """Per-label properties of an (H, W) label map (0 = background).
 
     Returns (num_labels+1,)-shaped tensors: area, cy, cx, perimeter,
     bbox_min_row, bbox_min_col, bbox_max_row, bbox_max_col (max exclusive),
-    exists, and the scalar ``overflow`` (labels dropped past the capacity)."""
+    exists, and the scalar ``overflow`` (labels dropped past the capacity);
+    with an (H, W) ``intensity`` image also ``mean_intensity`` (summed in
+    float64, divided in float32)."""
     H, W = labels.shape
     dev = labels.device
     lab_raw = labels.to(torch.int32)
@@ -110,4 +114,8 @@ def regionprops(labels: torch.Tensor, num_labels: int) -> Dict[str, torch.Tensor
     }
     for k in ("bbox_min_row", "bbox_min_col", "bbox_max_row", "bbox_max_col"):
         out[k] = out[k].to(torch.int32)
+    if intensity is not None:
+        sums = torch.zeros(ns, dtype=torch.float64, device=dev).index_add_(
+            0, flat, intensity.reshape(-1).to(torch.float64))
+        out["mean_intensity"] = sums.to(torch.float32) / safe_area
     return out

@@ -328,6 +328,46 @@ def tune_blur(specs) -> None:
     _time_variants("blur3d", blur_cuda._SIGNATURES, specs, cases)
 
 
+def checksum(t: torch.Tensor) -> tuple:
+    """(sum, position-weighted sum) of a tensor's bytes read as int32 words,
+    accumulated in int64 (wrapping) in chunks on the tensor's device: a
+    change of any word changes the pair with near certainty."""
+    b = t.detach().contiguous().reshape(-1).view(torch.uint8)
+    if b.numel() % 4:
+        b = torch.cat([b, b.new_zeros(4 - b.numel() % 4)])
+    w = b.view(torch.int32)
+    s0 = s1 = 0
+    step = 1 << 26
+    for i in range(0, w.numel(), step):
+        c = w[i:i + step].to(torch.int64)
+        pos = torch.arange(i, i + c.numel(), device=c.device) % 65521 + 1
+        s0 += int(c.sum())
+        s1 += int((c * pos).sum())
+    return s0, s1
+
+
+def first_difference(got: torch.Tensor, want: torch.Tensor):
+    """None if ``got`` equals ``want``; else (index, got value, want value)
+    of the first differing element in row-major order (searched in chunks),
+    or ("shape", got shape, want shape)."""
+    if got.shape != want.shape:
+        return "shape", tuple(got.shape), tuple(want.shape)
+    g, w = got.reshape(-1), want.reshape(-1)
+    step = 1 << 26
+    for i in range(0, g.numel(), step):
+        d = torch.nonzero(g[i:i + step] != w[i:i + step])
+        if d.numel():
+            k = i + int(d[0, 0])
+            return (tuple(int(v) for v in np.unravel_index(k, tuple(got.shape))),
+                    g[k].item(), w[k].item())
+    return None
+
+
+def _case_inputs(args, kw, packed):
+    return [t for t in (*args, *kw.values(), *packed)
+            if isinstance(t, torch.Tensor)]
+
+
 def tune_conv(specs) -> None:
     """The int8 conv at the 11 conv shapes of the depth-3, 128-filter U-Net
     at B = 8 (``chip_smoke.conv_case``, in the form ``conv3x3_s8`` picks for
@@ -335,39 +375,74 @@ def tune_conv(specs) -> None:
     and stage constants: ``TC_MAX_STAGES``, ``TC_SMEM``, ``FC_ROWS`` with
     ``FC_THREADS``) held bit for bit against the plain version at every
     shape, twice, then timed by graph replay; one forward's sum of the 14
-    convs and its TOP/s."""
+    convs and its TOP/s. Each case's inputs and plain result are
+    checksummed at the start and re-checked after every variant; a WRONG
+    prints the first differing element, whether the inputs and the plain
+    result still match their checksums, and the verdict of the library
+    loaded at entry on the same case. That library is restored on exit."""
     import chip_smoke
 
     check_only = "check" in specs
     specs = [s for s in specs if s != "check"]
+    entry = _device.load_library("conv_s8", conv_s8_cuda._SIGNATURES)
     gen = torch.Generator(device="cuda").manual_seed(8)
     cases = []
     for (side, cin, cout, cs), n in chip_smoke.UNET_CONVS:
         args, kw, packed = chip_smoke.conv_case(gen, 8, side, cin, cout, cs)
+        want = chip_smoke.plain_in_slices(*args, **kw)
+        sums = ([checksum(t) for t in _case_inputs(args, kw, packed)],
+                checksum(want))
         cases.append((f"{side}^2 {cin}{'+' + str(cs) if cs else ''}->{cout}",
                       n, 2.0 * 8 * side * side * 9 * (cin + cs) * cout, args,
-                      kw, packed, chip_smoke.plain_in_slices(*args, **kw)))
-    for name, (lib, constants, regs) in build_variants(
-            "conv_s8", conv_s8_cuda._SIGNATURES, specs).items():
-        _device._libs["conv_s8"] = lib
-        total = ops = 0.0
-        print(f"{name} {constants}: {regs}")
-        for label, n, nops, args, kw, packed, want in cases:
-            def fn():
-                return conv_s8_cuda.conv3x3_s8(*args, packed=packed, **kw)
+                      kw, packed, want, sums))
 
-            exact = torch.equal(fn(), want) and torch.equal(fn(), want)
-            form = conv_s8_cuda.conv_s8_form(args[0].shape[-1], 0 if kw[
-                "skip"] is None else kw["skip"].shape[-1], args[1].shape[0])
-            line = f"  {label} ({form}): {'bit-exact' if exact else 'WRONG'}"
+    def intact(args, kw, packed, want, sums):
+        return ([checksum(t) for t in _case_inputs(args, kw, packed)]
+                == sums[0], checksum(want) == sums[1])
+
+    try:
+        for name, (lib, constants, regs) in build_variants(
+                "conv_s8", conv_s8_cuda._SIGNATURES, specs).items():
+            _device._libs["conv_s8"] = lib
+            total = ops = 0.0
+            print(f"{name} {constants}: {regs}")
+            for label, n, nops, args, kw, packed, want, sums in cases:
+                def fn():
+                    return conv_s8_cuda.conv3x3_s8(*args, packed=packed, **kw)
+
+                got = fn()
+                diff = first_difference(got, want)
+                if diff is None:
+                    diff = first_difference(fn(), want)
+                form = conv_s8_cuda.conv_s8_form(args[0].shape[-1], 0 if kw[
+                    "skip"] is None else kw["skip"].shape[-1], args[1].shape[0])
+                inputs_ok, want_ok = intact(args, kw, packed, want, sums)
+                line = f"  {label} ({form}): {'bit-exact' if diff is None else 'WRONG'}"
+                if diff is not None:
+                    _device._libs["conv_s8"] = entry
+                    again = first_difference(fn(), want)
+                    _device._libs["conv_s8"] = lib
+                    line += (f" (first difference at {diff[0]}: got {diff[1]}, "
+                             f"want {diff[2]}; inputs "
+                             f"{'match' if inputs_ok else 'DO NOT match'} their "
+                             f"checksums, the plain result "
+                             f"{'matches' if want_ok else 'DOES NOT match'} its "
+                             f"checksum; the library loaded at entry: "
+                             f"{'bit-exact' if again is None else f'WRONG {again}'})")
+                elif not (inputs_ok and want_ok):
+                    line += (f" (inputs {'match' if inputs_ok else 'CHANGED'}, "
+                             f"plain result {'matches' if want_ok else 'CHANGED'})")
+                if not check_only:
+                    ms = graph_ms(fn, reps=5)
+                    total, ops = total + n * ms, ops + n * nops
+                    line += f", {ms:.4f} ms ({nops / ms / 1e9:.1f} TOP/s)"
+                print(line, flush=True)
+                del got
             if not check_only:
-                ms = graph_ms(fn, reps=5)
-                total, ops = total + n * ms, ops + n * nops
-                line += f", {ms:.4f} ms ({nops / ms / 1e9:.1f} TOP/s)"
-            print(line, flush=True)
-        if not check_only:
-            print(f"  one forward's 14 convs: {total:.4f} ms "
-                  f"({ops / total / 1e9:.1f} TOP/s)")
+                print(f"  one forward's 14 convs: {total:.4f} ms "
+                      f"({ops / total / 1e9:.1f} TOP/s)")
+    finally:
+        _device._libs["conv_s8"] = entry
 
 
 def time_wrappers(_specs) -> None:

@@ -5,7 +5,10 @@ per-frame ``CellTable``s; ``tracking_state_from_numpy`` and
 ``cell_table_from_numpy`` build the port's dataclasses from numpy arrays
 keyed by field name — for example the leaves of the JAX package's dataclasses
 of the same names — so a run can resume from a carry produced elsewhere.
-``unet_state_from_flax`` carries the U-Net's weights across: the Flax
+``tissue_from_numpy`` builds a ``Tissue`` session from the plain contents of
+another one (per-frame label maps, type maps and table leaves, drifts, valid
+frames, events and names). ``unet_state_from_flax`` carries the U-Net's
+weights across: the Flax
 variable tree of the JAX package's ``UNet`` as numpy arrays in, the
 ``state_dict`` of the port's ``UNet`` out (either up-sampling form: the
 transposed convs or the subpixel ``packed`` convs), and
@@ -25,7 +28,7 @@ from tissue_image_processing_tpu_torch.core.cell_table import CellTable
 from tissue_image_processing_tpu_torch.core.tracking import TrackingState
 
 __all__ = ["tracking_state_from_numpy", "cell_table_from_numpy",
-           "unet_state_from_flax", "quant_params_from_jax"]
+           "tissue_from_numpy", "unet_state_from_flax", "quant_params_from_jax"]
 
 _STATE_DTYPES = {"pos": torch.float32, "sqrt_area": torch.float32,
                  "track_id": torch.int32, "age": torch.int32,
@@ -60,6 +63,48 @@ def cell_table_from_numpy(leaves: Mapping[str, np.ndarray],
     """``CellTable`` from arrays named like its fields (one frame or a stack
     of frames)."""
     return _convert(CellTable, _TABLE_DTYPES, leaves, device)
+
+
+def tissue_from_numpy(arrays: Mapping, meta: Mapping, device=None):
+    """A ``Tissue`` on ``device`` (None: the card) from plain contents.
+
+    ``arrays``: ``labels`` and ``cell_types`` (lists of per-frame numpy maps
+    or None), ``tables`` (a list of per-frame dicts of numpy arrays named
+    like the ``CellTable`` fields, or None), ``drifts`` (T, 2) and
+    ``valid_frames`` (T,). ``meta``: ``number_of_frames``, ``data_path``,
+    ``capacity``, ``max_neighbors``, ``min_cell_area``, ``max_cell_area``,
+    ``type_names``, ``channel_names``, ``fake_channels``, ``events`` (a
+    DataFrame of the events schema) and, optionally,
+    ``shape_fitting_results``. Everything is copied."""
+    import copy
+
+    from tissue_image_processing_tpu_torch.core.tissue import Tissue
+
+    tissue = Tissue(int(meta["number_of_frames"]), meta["data_path"],
+                    channel_names=list(meta["channel_names"]),
+                    max_cell_area=meta["max_cell_area"],
+                    min_cell_area=meta["min_cell_area"],
+                    capacity=int(meta["capacity"]),
+                    max_neighbors=int(meta["max_neighbors"]), device=device)
+    tissue.type_names = list(meta["type_names"])
+    tissue.fake_channels = list(meta["fake_channels"])
+    tissue.events = meta["events"].copy()
+    if "shape_fitting_results" in meta:
+        tissue.shape_fitting_results = copy.deepcopy(
+            list(meta["shape_fitting_results"]))
+    tissue.drifts = np.array(arrays["drifts"], np.float64)
+    tissue.valid_frames = np.array(arrays["valid_frames"])
+    for f in range(1, tissue.number_of_frames + 1):
+        labels = arrays["labels"][f - 1]
+        if labels is not None:
+            tissue.set_labels(f, np.array(labels))
+        types = arrays["cell_types"][f - 1]
+        if types is not None:
+            tissue.set_cell_types(f, np.array(types))
+        leaves = arrays["tables"][f - 1]
+        if leaves is not None:
+            tissue.set_cells_info(f, cell_table_from_numpy(leaves, tissue.device))
+    return tissue
 
 
 def unet_state_from_flax(variables: Mapping) -> dict:

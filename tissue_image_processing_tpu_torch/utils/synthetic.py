@@ -12,17 +12,22 @@ checkpoint ships with the repository); ``training_frames`` makes annotated
 (image, label) frames for the training loop. ``random_unet`` and
 ``head_bias_for_share`` make the on-card smoke run's random U-Net, whose
 head bias puts a chosen share of a frame's pixels past the HC threshold.
+``voronoi_labels`` and ``make_tracked_tissue`` build tracked ``Tissue``
+sessions at a chosen cell density with planted events (a seed removed = a
+delamination, a seed inserted inside a mother cell = a division, a type bit
+set = a differentiation), so event detection is scored against known truth.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
 __all__ = ["make_movie", "coil_mask", "settle_cases", "random_settle_case",
            "keras_unet_arrays", "write_keras_h5", "training_frames",
-           "random_unet", "head_bias_for_share"]
+           "random_unet", "head_bias_for_share", "voronoi_labels",
+           "make_tracked_tissue"]
 
 
 def make_movie(T: int, Z: int, H: int, W: int, n_cells: Optional[int] = None,
@@ -281,3 +286,95 @@ def head_bias_for_share(probs, share: float, threshold: float = 0.1) -> float:
     kth = max(1, int(round((1.0 - share) * gap.numel())))
     cut = float(np.log(threshold / (1.0 - threshold)))
     return float(cut - torch.kthvalue(gap.cpu(), kth).values)
+
+
+def voronoi_labels(size: int, pts: np.ndarray) -> np.ndarray:
+    """(size, size) int32 label map: pixel -> nearest seed index + 1, with
+    0-valued 1-px watershed-style lines where 4-neighbour regions meet."""
+    from scipy.spatial import cKDTree
+
+    yy, xx = np.mgrid[0:size, 0:size]
+    _, idx = cKDTree(pts).query(np.stack([yy.ravel(), xx.ravel()], 1), k=1)
+    lab = (idx + 1).astype(np.int32).reshape(size, size)
+    lines = np.zeros_like(lab, dtype=bool)
+    lines[1:] |= lab[1:] != lab[:-1]
+    lines[:, 1:] |= lab[:, 1:] != lab[:, :-1]
+    return np.where(lines, 0, lab)
+
+
+def make_tracked_tissue(
+    n_frames: int = 6,
+    size: int = 1024,
+    n_cells: int = 2000,
+    seed: int = 0,
+    delaminate: Sequence[Tuple[int, int]] = (),
+    divide: Sequence[Tuple[int, int]] = (),
+    differentiate: Sequence[Tuple[int, int]] = (),
+    capacity: Optional[int] = None,
+    jitter: float = 0.3,
+    device=None,
+):
+    """A fully tracked :class:`~..core.tissue.Tissue` on ``device`` (None:
+    the card) at the given cell density with planted events.
+
+    ``delaminate`` / ``divide`` / ``differentiate``: lists of
+    ``(seed_index, frame_from)`` — the 1-based frame at which the seed
+    disappears / a daughter seed appears just beside it / its type-0 bit
+    turns on. Seed ``i`` tracks as id ``i + 1``; daughters get fresh ids
+    ``n_cells + 1, ...`` in ``divide`` order. Returns ``(tissue, info)``,
+    ``info`` mapping event kinds to the planted ``(cell_id, frame)`` lists.
+    """
+    from tissue_image_processing_tpu_torch.core.cell_table import (
+        replace_fields, to_numpy)
+    from tissue_image_processing_tpu_torch.core.tissue import Tissue
+
+    rng = np.random.default_rng(seed)
+    # jittered grid seeds: near-uniform density like an epithelium
+    g = int(np.ceil(np.sqrt(n_cells)))
+    step = size / g
+    base = np.stack(np.meshgrid(np.arange(g), np.arange(g)), -1).reshape(-1, 2)
+    pts0 = (base + 0.5) * step + rng.normal(0, jitter * step, (g * g, 2))
+    pts0 = np.clip(pts0[:n_cells], 1, size - 2)
+
+    cap = capacity or int(2 ** np.ceil(np.log2(n_cells + len(divide) + 8)))
+    tissue = Tissue(n_frames, "synthetic", capacity=cap,
+                    min_cell_area=0.01, max_cell_area=100.0, device=device)
+    daughters = {}  # divide order -> (daughter_pos, frame_from, mother_idx)
+    for j, (mi, ff) in enumerate(divide):
+        off = rng.normal(0, 0.15 * step, 2)
+        daughters[j] = (np.clip(pts0[mi] + off, 1, size - 2), ff, mi)
+
+    info = {"delamination": [(mi + 1, ff) for mi, ff in delaminate],
+            "division": [(n_cells + 1 + j, ff)
+                         for j, (_, ff, _) in daughters.items()],
+            "differentiation": [(mi + 1, ff) for mi, ff in differentiate]}
+
+    for f in range(1, n_frames + 1):
+        keep = np.ones(n_cells, bool)
+        for mi, ff in delaminate:
+            if f >= ff:
+                keep[mi] = False
+        pts = [pts0[keep]]
+        ids = [np.nonzero(keep)[0] + 1]
+        for j, (dpos, ff, _mi) in daughters.items():
+            if f >= ff:
+                pts.append(dpos[None])
+                ids.append(np.array([n_cells + 1 + j]))
+        pts = np.concatenate(pts, 0)
+        ids = np.concatenate(ids, 0).astype(np.int32)
+        labels = voronoi_labels(size, pts)
+        tissue.set_labels(f, labels, reset_data=True)
+        tissue.calculate_frame_cellinfo(f)
+        table = tissue.get_cells_info(f)
+        mask = to_numpy(table.valid_mask())
+        ids_row = np.zeros(cap, np.int32)
+        ids_row[:ids.size] = ids
+        types = np.zeros(cap, np.uint8)
+        for mi, ff in differentiate:
+            if f >= ff:
+                row = np.nonzero(ids == mi + 1)[0]
+                if row.size:
+                    types[row[0]] = 1
+        table = replace_fields(table, type=types)
+        tissue.apply_track_ids(f, table, ids_row, mask)
+    return tissue, info
