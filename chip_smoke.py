@@ -120,16 +120,33 @@ Phases (any failure exits non-zero; no phase catches and continues):
    steps on a CPU session are held to the card's (exact but the float
    features, 1e-5, and the re-tracked drifts, one 0.01 px bin); planted
    events at 2000 cells on 1024^2 are found, none on a static tissue;
-9. print the kernel table as one JSON object (launches from the Z=30
-   watershed run, the component minimum's from the U-Net run, the int8
-   conv's from the int8 U-Net run, with its launches by form — its times
-   summed over one forward's 14 convs at B = 8, the generic form's beside
-   them, with each shape under ``by_shape`` — and each
-   kernel's launches by function of phase 3; the blur at the driver's
-   shapes as three rows ``blur3d_driver_*`` with the CLI run's launches),
-   then the
-   card's line, and
-   as the last line ``{"ok": true, "device": {...}}``.
+9. "cli": the session front end (``check_cli``). The main CLI's ``main``
+   on the card, file to file, with the headline movie written as a
+   ``.npy`` store under ``build/``: ``pipeline --events`` (every watershed
+   kernel launched as often as ``movie_pipeline`` launches it; the session
+   equal to the "tissue" phase's in-memory one; ``--chunk 4`` equal) and
+   ``pipeline --unet --quantize`` at depth 3 / 128 filters from a seeded
+   Keras weights file (``cc_scan`` and ``conv3x3_s8`` launched;
+   ``--chunk 4`` equal), frames/s of both; on a Z = 1 store of the
+   projected frames ``segment`` (labels equal to the pipeline's),
+   ``types``, ``track --use-images --fix-types``, ``events``, ``export``
+   in all five formats, ``analyze``, ``warmup`` (and ``--unet
+   --quantize``), ``view`` through a stub napari with one click in each
+   mode (equal to direct ``SegmentationEditor`` calls); the chain on a
+   256^2 crop on the card against the CPU (exact but the drifts, one bin);
+   TV-L1 on a projected 1024^2 frame pair (card vs CPU in the CPU tests'
+   class, ms a pair) and the flow tracker over the 8 frames (ids card == CPU); each
+   subcommand's seconds;
+10. print the kernel table as one JSON object (launches from the Z=30
+    watershed run, the component minimum's from the U-Net run, the int8
+    conv's from the int8 U-Net run, with its launches by form — its times
+    summed over one forward's 14 convs at B = 8, the generic form's beside
+    them, with each shape under ``by_shape`` — and each
+    kernel's launches by function of phase 3; the blur at the driver's
+    shapes as three rows ``blur3d_driver_*`` with the CLI run's launches;
+    ``launches_cli`` / ``launches_cli_unet_int8``: the "cli" phase's two
+    pipeline runs), then the card's line, and as the last line
+    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or the JAX package.
 """
@@ -139,6 +156,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import importlib
+import importlib.util
 import json
 import subprocess
 import sys
@@ -235,6 +253,27 @@ def kernel_split(fn, reps: int) -> str:
             for e in prof.key_averages() if device_us(e) > 0]
     assert rows, "the profiler recorded no device time"
     return ", ".join(f"{k} {us:.1f}" for k, us in sorted(rows, key=lambda r: -r[1]))
+
+
+def device_profile(fn):
+    """(device operations launched, their summed device ms) of one call of
+    ``fn()`` after a warm one, by the profiler's CUDA trace: against the
+    call's wall time it says how much of it the card was busy."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if (getattr(e, "device_time_total", None)
+                or getattr(e, "cuda_time_total", 0)) > 0]
+    assert rows, "the profiler recorded no device time"
+    return (sum(e.count for e in rows),
+            sum(getattr(e, "device_time_total", None)
+                or getattr(e, "cuda_time_total", 0) for e in rows) / 1e3)
 
 
 def bound(nbytes: float, nops: float):
@@ -2075,23 +2114,18 @@ def tissue_steps(tissue, markers, refs, frame: int, timed):
     # boundary line beside it, undo both: bit for bit at each depth
     table = tissue.get_cells_info(frame)
     labels = tissue.get_labels(frame)
-    area = np.where(mask, table.area.cpu().numpy(), 0)
-    cell = int(area.argmax()) + 1
-    ys, xs = np.nonzero(labels == cell)
-    mid = int(np.median(ys))
-    row, upper = xs[ys == mid], xs[ys == mid - 3]
+    left, right, line, _ = cell_geometry(labels, table, mask)
     before = (labels.copy(), tissue.get_cell_types(frame).copy(),
               host_fields(table))
 
     def edit():
         ed = SegmentationEditor(tissue)
-        ed.add_segmentation_line(frame, (int(row.min()), mid), initial=True)
-        ed.add_segmentation_line(frame, (int(row.max()), mid),
-                                 point2=(int(row.min()), mid))
-        ed.add_segmentation_line(frame, (int(row.max()), mid), final=True)
+        ed.add_segmentation_line(frame, left, initial=True)
+        ed.add_segmentation_line(frame, right, point2=left)
+        ed.add_segmentation_line(frame, right, final=True)
         split = tissue.get_labels(frame).copy()
         # the line on the cell's right, beside its upper half
-        ed.remove_segmentation_line(frame, (int(upper.max()) + 1, mid - 3))
+        ed.remove_segmentation_line(frame, line)
         merged = tissue.get_labels(frame).copy()
         undone = (ed.undo_last_action(frame), ed.undo_last_action(frame))
         return split, merged, undone
@@ -2184,7 +2218,8 @@ def check_tissue(card: str, movie, device: str = "cuda", side: int = 1024,
        that size; ``find_events`` ms per frame pair,
        ``second_order_neighbors_from_type`` and ``spatial_map`` ms.
     ``device``, ``side`` and ``n_cells`` exist for a dry run on the CPU at
-    a small size; the smoke run takes the defaults."""
+    a small size; the smoke run takes the defaults. Returns the feed (the
+    pipeline's labels, host tables, ids and drifts) for the "cli" phase."""
     import tempfile
     from pathlib import Path
 
@@ -2217,6 +2252,8 @@ def check_tissue(card: str, movie, device: str = "cuda", side: int = 1024,
     feed = {k: v for k, v in tipt.LAUNCHES.items() if v}
     labels = out["labels"].cpu().numpy()
     host = out["tables"].map(lambda t: t.cpu())  # one stacked read-back
+    feed = {"labels": labels, "tables": host, "ids": out["ids"],
+            "drifts": out["drifts"]}
     print(f"tissue: fed by movie_pipeline {tuple(movie.shape)} and the "
           f"projections of both channels; the feed's launches {feed}")
 
@@ -2224,15 +2261,8 @@ def check_tissue(card: str, movie, device: str = "cuda", side: int = 1024,
     build.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build, prefix="smoke_tissue_") as d:
         def populate(on, frames):
-            t = Tissue(frames, str(Path(d) / f"session_{on}"),
-                       channel_names=["zo", "atoh"], capacity=cap, device=on)
-            for f in range(1, frames + 1):
-                t.set_labels(f, labels[f - 1].copy(), reset_data=True)
-                t.apply_track_ids(f, host.map(lambda x: x[f - 1].clone()),
-                                  out["ids"][f - 1],
-                                  host.valid_mask()[f - 1].numpy())
-            t.drifts[:] = out["drifts"][:frames]
-            return t
+            return populate_session(feed, frames, str(Path(d) / f"session_{on}"),
+                                    on, ["zo", "atoh"], cap)
 
         def run(tissue, frames, record):
             def timed(name, fn, per):
@@ -2388,6 +2418,565 @@ def check_tissue(card: str, movie, device: str = "cuda", side: int = 1024,
           f"second_order_neighbors_from_type {so_ms:.4f} ms, spatial_map "
           f"({-(-side // 16)}^2 grid) {sm_ms:.4f} ms on {card}")
     print(f"tissue: phase {time.perf_counter() - t_phase:.1f} s on {card}")
+    return feed
+
+
+def populate_session(feed, frames: int, path: str, device, channel_names,
+                     capacity: int):
+    """A ``Tissue`` on ``device`` populated from ``movie_pipeline``'s host
+    output ``feed`` (labels, stacked host tables, ids, drifts) as the CLI's
+    ``cmd_pipeline`` populates it: per frame ``set_labels`` and
+    ``apply_track_ids`` with the frame's slice of the tables, then the
+    drifts."""
+    from tissue_image_processing_tpu_torch.core.tissue import Tissue
+
+    host = feed["tables"]
+    t = Tissue(frames, path, channel_names=channel_names, capacity=capacity,
+               device=device)
+    for f in range(1, frames + 1):
+        t.set_labels(f, feed["labels"][f - 1].copy(), reset_data=True)
+        t.apply_track_ids(f, host.map(lambda x: x[f - 1].clone()),
+                          feed["ids"][f - 1], host.valid_mask()[f - 1].numpy())
+    t.drifts[:] = feed["drifts"][:frames]
+    return t
+
+
+def h5py_stand_in():
+    """A module with the part of h5py's interface that
+    ``utils/synthetic.py:write_keras_h5`` and
+    ``models/weights_io.py:keras_layer_arrays`` use (``File`` as a context
+    manager, groups, datasets, ``visititems``). The card's machine has no
+    h5py; this one keeps a file's datasets in an ``.npz`` under their HDF5
+    paths, so the CLI's ``--weights`` loader runs there as it does on a
+    real Keras file."""
+    import types
+
+    mod = types.ModuleType("h5py")
+    GROUPS = "__groups__"
+
+    class Dataset:
+        def __init__(self, array):
+            self._array = np.asarray(array)
+
+        def __array__(self, dtype=None, copy=None):
+            return self._array if dtype is None else self._array.astype(dtype)
+
+    class Group(dict):
+        def create_group(self, name):
+            return self.setdefault(name, Group())
+
+        def create_dataset(self, name, data):
+            self[name] = Dataset(data)
+
+        def visititems(self, fn, prefix=""):
+            for name in sorted(self):   # h5py visits in name order
+                obj = self[name]
+                fn(prefix + name, obj)
+                if isinstance(obj, Group):
+                    obj.visititems(fn, prefix + name + "/")
+
+    class File(Group):
+        def __init__(self, path, mode="r"):
+            super().__init__()
+            self._path, self._mode = path, mode
+            if mode == "r":
+                with np.load(path) as z:
+                    for key in z.files:
+                        *groups, leaf = key.split("/")
+                        g = self
+                        for name in groups:
+                            g = g.create_group(name)
+                        if key == GROUPS:   # the groups, empty ones too
+                            for group in z[key]:
+                                g = self
+                                for name in str(group).split("/"):
+                                    g = g.create_group(name)
+                        else:
+                            g.create_dataset(leaf, z[key])
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            if self._mode == "w" and exc[0] is None:
+                flat, groups = {}, []
+                self.visititems(lambda k, o: flat.__setitem__(k, np.asarray(o))
+                                if isinstance(o, Dataset) else groups.append(k))
+                flat[GROUPS] = np.array(groups, dtype=str)
+                with open(self._path, "wb") as f:
+                    np.savez(f, **flat)
+            return False
+
+    mod.Dataset, mod.Group, mod.File = Dataset, Group, File
+    return mod
+
+
+@contextlib.contextmanager
+def stub_module(name: str, module):
+    """``module`` in ``sys.modules[name]`` for the block."""
+    saved = sys.modules.get(name)
+    sys.modules[name] = module
+    try:
+        yield module
+    finally:
+        if saved is None:
+            del sys.modules[name]
+        else:
+            sys.modules[name] = saved
+
+
+def napari_stand_in(script):
+    """A stub ``napari``: ``Viewer`` records layers and mouse callbacks;
+    ``run()`` calls ``script(tissue_viewer)`` with the ``TissueViewer``
+    whose click handler was registered, in place of a user's clicks."""
+    import types
+
+    mod = types.ModuleType("napari")
+
+    class LayerList(list):
+        def __contains__(self, name):
+            return any(layer.name == name for layer in self)
+
+        def remove(self, name):
+            for layer in list(self):
+                if layer.name == name:
+                    super().remove(layer)
+
+    class Layer:
+        def __init__(self, data, name, **kwargs):
+            self.data, self.name, self.kwargs = data, name, kwargs
+
+    class Viewer:
+        made = []
+
+        def __init__(self, title=""):
+            self.layers = LayerList()
+            self.mouse_drag_callbacks = []
+            Viewer.made.append(self)
+
+        def _add(self, data, name=None, **kwargs):
+            self.layers.append(Layer(data, name, **kwargs))
+
+        add_image = add_labels = add_points = _add
+
+    def run():
+        viewer = Viewer.made[-1]
+        script(viewer.mouse_drag_callbacks[0].__self__)
+
+    mod.Viewer, mod.run = Viewer, run
+    return mod
+
+
+class _Click:
+    type = "mouse_press"
+
+    def __init__(self, y, x):
+        self.position = (float(y), float(x))
+
+
+def cell_geometry(labels, table, mask):
+    """Click positions (x, y) on the largest valid interior cell of a label
+    map: the two ends of its median row (a line across it), a pixel of the
+    line on its right beside its upper half, and a second cell's centroid."""
+    area = np.where(mask, table.area.cpu().numpy(), 0)
+    cell = int(area.argmax()) + 1
+    ys, xs = np.nonzero(labels == cell)
+    mid = int(np.median(ys))
+    row, upper = xs[ys == mid], xs[ys == mid - 3]
+    other = int(np.argsort(area)[-2])
+    centre = (int(round(float(table.cx[other]))), int(round(float(table.cy[other]))))
+    return ((int(row.min()), mid), (int(row.max()), mid),
+            (int(upper.max()) + 1, mid - 3), centre)
+
+
+def keras_arrays(state, depth: int) -> dict:
+    """The Keras layer arrays (name -> {weight name -> array}) that
+    ``models/weights_io.py:keras_arrays_to_state`` maps onto ``state`` (a
+    ``UNet(norm="bn")`` state_dict): its inverse, convs, transposed convs
+    and BatchNorms in the U-Net's creation order."""
+    bn_names = {"gamma": "weight", "beta": "bias",
+                "moving_mean": "running_mean", "moving_variance": "running_var"}
+    n_blocks = 2 * depth + 1
+    convs = [f"blocks.{k}.conv{i}" for k in range(n_blocks) for i in (0, 1)]
+    bns = [f"blocks.{k}.bn{i}" for k in range(n_blocks) for i in (0, 1)]
+
+    def name(base, i):
+        return base if i == 0 else f"{base}_{i}"
+
+    def arr(key):
+        return state[key].detach().float().cpu().numpy()
+
+    layers = {}
+    for i, key in enumerate(convs + ["head"]):
+        layers[name("conv2d", i)] = {
+            "kernel": arr(key + ".weight").transpose(2, 3, 1, 0),
+            "bias": arr(key + ".bias")}
+    for j in range(depth):
+        layers[name("conv2d_transpose", j)] = {
+            "kernel": arr(f"ups.{j}.weight").transpose(2, 3, 1, 0),
+            "bias": arr(f"ups.{j}.bias")}
+    for i, key in enumerate(bns):
+        layers[name("batch_normalization", i)] = {
+            k: arr(f"{key}.{t}") for k, t in bn_names.items()}
+    return layers
+
+
+def check_cli(card: str, movie, feed, ws_launches: dict, device: str = "cuda",
+              unet_depth: int = 3, unet_filters: int = 128, crop: int = 256,
+              min_unet_cells: int = 20):
+    """The "cli" phase: ``python -m tissue_image_processing_tpu_torch.cli``'s
+    ``main`` on the card (``device=None``, the normal entry point), file to
+    file, the movie written as a ``.npy`` store under ``build/``:
+
+    1. ``pipeline --capacity 1024 --events`` on the headline raw movie with
+       the counters zeroed: every watershed-path kernel launched, as often
+       as ``movie_pipeline`` launched it in phase 5 (``ws_launches``); its
+       session (labels, tables, ids, drifts, events) equal to one populated
+       in memory from the "tissue" phase's ``movie_pipeline`` output
+       (``feed``) as ``cmd_pipeline`` populates it, then
+       ``find_events_iterator``; ``--chunk 4`` the same (drifts to 1e-4);
+    2. ``pipeline --unet --quantize --unet-batch 8`` at ``unet_depth`` /
+       ``unet_filters`` (3 / 128) from a Keras ``.h5`` (through
+       ``h5py_stand_in`` where h5py is absent) of the seeded random U-Net
+       of phase 5 (``utils/synthetic.py:random_unet``; the file read back
+       equal), the head bias set so half of the first projected frame
+       passes the HC threshold: ``cc_scan`` 8 launches and ``conv3x3_s8`` 14 (one
+       forward of the 8 frames), the flood non-trivial, ``--chunk 4``
+       equal;
+    3. on a Z = 1 store of the movie's projected frames: ``segment`` (labels
+       equal to the pipeline's: the same reference frames, the same
+       watershed), ``types``, ``track --use-images --fix-types``,
+       ``events``, ``export`` in all five formats, ``analyze --feature area
+       --out``, ``warmup`` with and without ``--unet --quantize``;
+    4. ``view`` against ``napari_stand_in``: an add-line, a remove-line, a
+       change-type and a mark-event click on frame 4 and an undo, the saved
+       session equal to the same ``SegmentationEditor`` / ``add_event``
+       calls on a twin session;
+    5. the chain of 3 (and ``pipeline --events`` on that store) on a
+       ``crop``^2 corner with ``device="cpu"``: sessions equal to the
+       card's, exact but the drifts (one bin of the 100x upsampled phase
+       correlation, as in the "tissue" phase);
+    6. ``optical_flow_tvl1`` on the first two projected reference frames,
+       card vs CPU in the CPU tests' class for a whole frame (|dflow| <=
+       5e-3 px on >= 99.9% of the values, mean <= 1e-3 px), ms per frame
+       pair by CUDA events beside the device operations it launches and
+       their summed device time (``device_profile``); ``track_movie_nearest_pixel(use_flow=True)`` over the T
+       frames of ``feed``: the card's ids equal the CPU's.
+    Returns the launches of the two pipeline runs. ``device``, the U-Net's
+    size, ``crop`` and ``min_unet_cells`` exist for a dry run on the CPU at
+    a small size."""
+    import io
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    import tissue_image_processing_tpu_torch as tipt
+    from tissue_image_processing_tpu_torch import cli
+    from tissue_image_processing_tpu_torch.core.editing import (
+        SegmentationEditor)
+    from tissue_image_processing_tpu_torch.core.events import add_event
+    from tissue_image_processing_tpu_torch.core.pipeline import _projections
+    from tissue_image_processing_tpu_torch.core.tissue import Tissue
+    from tissue_image_processing_tpu_torch.core.tracking import (
+        track_movie_nearest_pixel)
+    from tissue_image_processing_tpu_torch.models.predictor import (
+        SegmentationPredictor, prepare_batch)
+    from tissue_image_processing_tpu_torch.ops.optical_flow import (
+        optical_flow_tvl1)
+    from tissue_image_processing_tpu_torch.models.weights_io import (
+        load_keras_unet_weights)
+    from tissue_image_processing_tpu_torch.utils.synthetic import (
+        head_bias_for_share, random_unet, write_keras_h5)
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def run(name, argv, on=None):
+        """One ``cli.main`` call; its wall seconds and its printed lines.
+        ``on``: None = the phase's device (the card: device=None)."""
+        on = on or device
+        out = io.StringIO()
+        sync()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(argv, device=None if on == "cuda" else on)
+        sync()
+        secs = time.perf_counter() - t0
+        assert rc == 0, (name, rc)
+        lines = out.getvalue().strip().splitlines()
+        seconds[name if on == device else f"{name} ({on})"] = secs
+        return secs, lines
+
+    def contents(path, T, cap, on=None):
+        t = Tissue(T, str(Path(path).with_suffix("")), capacity=cap,
+                   device=on or device)
+        for _ in t.load(path):
+            pass
+        c = session_contents(t)
+        t.clean_up()
+        return c
+
+    t_phase = time.perf_counter()
+    seconds = {}
+    T, C, Z, Y, X = movie.shape
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build, prefix="smoke_cli_") as d:
+        d = Path(d)
+        movie_path = str(d / "movie.npy")
+        np.save(movie_path, movie)
+
+        # 1. the watershed path, file to file
+        ws = str(d / "ws.seg")
+        sync()
+        tipt.reset_launches()
+        secs, lines = run("pipeline", ["pipeline", movie_path, "--session", ws,
+                                       "--capacity", "1024", "--events"])
+        launches = {k: v for k, v in tipt.LAUNCHES.items() if v}
+        if on_card:
+            missing = [k for k in WATERSHED_KERNELS + PROJECTION_KERNELS
+                       if not launches.get(k)]
+            assert not missing, f"cli pipeline launched no {missing}"
+            want = {k: v for k, v in ws_launches.items() if v}
+            assert launches == want, (launches, want)
+        ws_fps = T / secs
+        got = contents(ws, T, 1024)
+        ref = populate_session(feed, T, str(d / "memory"), device, [], 1024)
+        for _ in ref.find_events_iterator(1, T):
+            pass
+        # load() drops duplicated event rows, as the JAX package's does
+        want_c = dict(session_contents(ref), events=sorted_events(
+            ref.get_events().drop_duplicates(ignore_index=True)))
+        ref.clean_up()
+        assert_contents_equal(got, want_c, "cli pipeline vs movie_pipeline")
+        n_events = len(got["events"])
+        print(f"cli: pipeline {T} x {Y}x{X} Z={Z} file to file {secs:.3f} s, "
+              f"{ws_fps:.3f} frames/s ({'; '.join(lines[-3:])}); launches "
+              f"{launches}; session == movie_pipeline's in memory (labels, "
+              f"tables, ids, drifts, {n_events} events) on {card}")
+        chunked = str(d / "ws_chunked.seg")
+        _, lines = run("pipeline --chunk 4",
+                       ["pipeline", movie_path, "--session", chunked,
+                        "--capacity", "1024", "--events", "--chunk", "4"])
+        assert lines[0] == f"streaming {T} frames in chunks of 4", lines
+        assert_contents_equal(contents(chunked, T, 1024), got,
+                              "cli pipeline --chunk 4", drift_atol=1e-4)
+
+        # 2. the int8 U-Net path, file to file, weights from a Keras file
+        weights = str(d / "unet.h5")
+        real_h5 = importlib.util.find_spec("h5py") is not None
+        h5 = importlib.import_module("h5py") if real_h5 else h5py_stand_in()
+        with stub_module("h5py", h5):
+            state = random_unet(unet_depth, unet_filters, seed=0).state_dict()
+            layers = keras_arrays(state, unet_depth)
+            write_keras_h5(weights, layers, "keras2")
+            back = load_keras_unet_weights(state, weights)
+            assert all(torch.equal(back[k], v.float()) for k, v in state.items()
+                       if v.is_floating_point()), "Keras file round trip"
+            pred = SegmentationPredictor(weights, (2, Y, X), depth=unet_depth,
+                                         base_filters=unet_filters,
+                                         device=device)
+            x, (px, py) = prepare_batch(_projections(movie[:1], 0, dev))
+            head = f"conv2d_{4 * unet_depth + 2}"
+            delta = head_bias_for_share(pred._forward(x)[0, px:, py:], 0.5)
+            layers[head]["bias"][0] += delta
+            write_keras_h5(weights, layers, "keras2")
+            del pred
+            unet_argv = ["pipeline", movie_path, "--capacity", "2048",
+                         "--unet", "--quantize", "--unet-batch", "8",
+                         "--weights", weights, "--unet-depth", str(unet_depth),
+                         "--unet-filters", str(unet_filters)]
+            unet = str(d / "unet.seg")
+            sync()
+            tipt.reset_launches()
+            secs, lines = run("pipeline --unet --quantize",
+                              unet_argv + ["--session", unet])
+            unet_launches = {k: v for k, v in tipt.LAUNCHES.items() if v}
+            if on_card:   # 4 launches a component minimum, 2 a flood
+                assert unet_launches.get("cc_scan") == 8 * -(-T // 8), \
+                    unet_launches
+                assert unet_launches.get("conv3x3_s8") == \
+                    (4 * unet_depth + 2) * -(-T // 8), unet_launches
+                assert "diffusion_bf" not in unet_launches, unet_launches
+            unet_fps = T / secs
+            got_u = contents(unet, T, 2048)
+            cells = [int(lab.max()) for lab in got_u["labels"]]
+            assert min(cells) >= min_unet_cells, \
+                f"trivial flood: cells/frame {cells}"
+            run("pipeline --unet --quantize --chunk 4",
+                unet_argv + ["--session", str(d / "unet4.seg"), "--chunk", "4"])
+            assert_contents_equal(contents(str(d / "unet4.seg"), T, 2048),
+                                  got_u, "cli pipeline --unet --chunk 4",
+                                  drift_atol=1e-4)
+        print(f"cli: pipeline --unet --quantize (depth {unet_depth}, "
+              f"{unet_filters} filters, Keras weights through "
+              f"{'h5py' if real_h5 else 'the h5py stand-in'}, head bias "
+              f"+ {delta:.6f}) {T} x {Y}x{X} Z={Z} file to file {secs:.3f} s, "
+              f"{unet_fps:.3f} frames/s ({lines[-2]}); cells/frame {cells}; "
+              f"--chunk 4 equal; launches {unet_launches} on {card}")
+
+        # 3. the per-frame chain on a Z = 1 store of the projected frames
+        prj = _projections(movie, 0, dev).cpu().numpy()     # (T, C, Y, X)
+        z1 = str(d / "z1.npy")
+        np.save(z1, prj[:, :, None])
+        chain_s = str(d / "chain.seg")
+
+        def chain(store, session, frames, on=None, out=None, tag=""):
+            common = ["--session", session, "--capacity", "1024"]
+            run(tag + "segment", ["segment", store, "--session", session,
+                                  "--capacity", "1024"], on)
+            run(tag + "types", ["types", store, *common, "--channel", "1",
+                                "--name", "HC", "--threshold", "0.3"], on)
+            run(tag + "track", ["track", store, *common, "--use-images",
+                                "--fix-types"], on)
+            run(tag + "events", ["events", *common, "--frames", str(frames)],
+                on)
+            if out is not None:
+                for fmt in ("matlab", "tiff", "tiff+types", "npy", "events"):
+                    run(f"export {fmt}", ["export", *common, "--frames",
+                                          str(frames), str(out / fmt),
+                                          "--format", fmt], on)
+                run("analyze", ["analyze", *common, "--frames", str(frames),
+                                "--feature", "area", "--out",
+                                str(out / "area.csv")], on)
+
+        chain(z1, chain_s, T, out=d / "export")
+        got_c = contents(chain_s, T, 1024)
+        for f in range(T):
+            assert np.array_equal(got_c["labels"][f], feed["labels"][f]), \
+                f"cli segment frame {f + 1} != the pipeline's labels"
+        assert all((t["type"] > 0).any() for t in got_c["tables"]), "no HC typed"
+        valid = feed["tables"].valid_mask().numpy()
+        pipe_ids = np.where(valid, feed["ids"], 0)
+        ids = np.stack([t["label"] for t in got_c["tables"]])
+        same = float((ids[valid] == pipe_ids[valid]).mean())
+        exports = sorted(p.name for p in (d / "export").rglob("*") if p.is_file())
+        assert exports == ["area.csv", "export.csv", "export.mat", "export.npy",
+                           "export.tif", "export.tif"], exports
+        for argv in (["warmup"], ["warmup", "--unet", "--quantize",
+                                  "--unet-depth", str(unet_depth),
+                                  "--unet-filters", str(unet_filters)]):
+            _, lines = run(" ".join(argv), argv)
+            assert lines[-1].startswith("warm cache ready"), lines
+            print(f"cli: {' '.join(argv)}: {' | '.join(lines)}")
+        print(f"cli: per-frame chain on the Z=1 store: segment labels == the "
+              f"pipeline's on all {T} frames; track --use-images ids == the "
+              f"pipeline's on {same:.6f} of {int(valid.sum())} cells; "
+              f"{len(got_c['events'])} events; exports {exports} on {card}")
+
+        # 4. the viewer, clicks through the napari stand-in
+        frame = min(4, T)
+        twin = Tissue(T, str(d / "twin"), capacity=1024, device=device)
+        for _ in twin.load(chain_s):
+            pass
+        table = twin.get_cells_info(frame)
+        left, right, line, centre = cell_geometry(
+            twin.get_labels(frame), table, twin.get_valid_non_edge_mask(frame))
+        clicks = []
+
+        def script(tv):
+            assert tv.frame == frame
+            for mode, points in (("add_line", (left, right)),
+                                 ("remove_line", (line,)),
+                                 ("change_type", (centre,)),
+                                 ("mark_event", (centre,))):
+                tv.mode = mode
+                for x, y in points:   # napari hands over (y, x)
+                    tv.viewer.mouse_drag_callbacks[0](tv.viewer, _Click(y, x))
+            clicks.append(tv.undo())
+            names = [layer.name for layer in tv.viewer.layers]
+            assert names[-1] == "events" and "segmentation" in names, names
+
+        with stub_module("napari", napari_stand_in(script)):
+            run("view", ["view", z1, "--session", chain_s, "--capacity", "1024",
+                         "--frame", str(frame)])
+        ed = SegmentationEditor(twin)
+        ed.add_segmentation_line(frame, left, right, initial=True, final=True)
+        ed.remove_segmentation_line(frame, line)
+        ed.change_cell_type(frame, centre, "HC")
+        add_event(twin, "division", frame, frame, start_pos=centre,
+                  end_pos=centre)
+        assert clicks == [ed.undo_last_action(frame)], clicks
+        viewed = contents(chain_s, T, 1024)
+        assert_contents_equal(viewed, dict(
+            session_contents(twin), events=sorted_events(
+                twin.get_events().drop_duplicates(ignore_index=True))),
+            "cli view")
+        twin.clean_up()
+        assert (viewed["events"].type == "division").sum() >= 1
+        print(f"cli: view (napari stand-in): add-line {left}->{right}, "
+              f"remove-line {line}, change-type and mark-event at {centre}, "
+              f"undo on frame {frame}: session == SegmentationEditor / "
+              f"add_event on a twin on {card}")
+
+        # 5. card vs CPU on a crop of the Z = 1 store
+        crop_path = str(d / "crop.npy")
+        np.save(crop_path, np.ascontiguousarray(prj[:, :, None, :crop, :crop]))
+        for on in (device, "cpu"):
+            chain(crop_path, str(d / f"crop_{on}.seg"), T, on, tag="crop ")
+            run("crop pipeline", ["pipeline", crop_path, "--session",
+                             str(d / f"crop_pipe_{on}.seg"), "--capacity",
+                             "1024", "--events"], on)
+        drift_err = 0.0
+        for name in ("crop", "crop_pipe"):
+            a = contents(str(d / f"{name}_{device}.seg"), T, 1024)
+            b = contents(str(d / f"{name}_cpu.seg"), T, 1024, "cpu")
+            assert_contents_equal(a, b, f"cli {name}: card vs CPU",
+                                  drift_atol=0.01 + 1e-5)
+            drift_err = max(drift_err, float(np.abs(a["drifts"]
+                                                    - b["drifts"]).max()))
+        print(f"cli: card == CPU on a {crop}^2 crop ({T} frames): the chain's "
+              f"and pipeline's sessions exact, drifts within {drift_err:.6g} px "
+              f"on {card}")
+
+    # 6. TV-L1 and the flow tracker
+    ref0, ref1 = (torch.from_numpy(prj[i, 0]).to(dev) for i in (0, 1))
+    flow = optical_flow_tvl1(ref0, ref1, device=device)
+    timer = cuda_ms if on_card else host_ms
+    flow_ms = timer(lambda: optical_flow_tvl1(ref0, ref1, device=device), 3)
+    # launch-bound or not: the card's busy time within a pair's wall time
+    flow_ops, flow_busy = (device_profile(
+        lambda: optical_flow_tvl1(ref0, ref1, device=device))
+        if on_card else (0, 0.0))
+    flow_cpu = optical_flow_tvl1(ref0.cpu(), ref1.cpu(), device="cpu")
+    # the CPU tests' class for a whole frame: a few values cross the
+    # solver's pointwise threshold on one side and not the other
+    dflow = (flow.cpu() - flow_cpu).abs()
+    flow_err = float(dflow.max())
+    flow_far = int((dflow > 5e-3).sum())
+    assert flow_far <= 1e-3 * dflow.numel(), flow_far
+    assert float(dflow.mean()) <= 1e-3, float(dflow.mean())
+    host = feed["tables"]
+    images = np.ascontiguousarray(prj[:, 0].transpose(0, 2, 1))   # x-major
+    track_args = (feed["labels"], host.cy.numpy(), host.cx.numpy(),
+                  host.valid_mask().numpy())
+    sync()
+    t0 = time.perf_counter()
+    flow_ids = track_movie_nearest_pixel(*track_args, images=images,
+                                         use_flow=True, device=device)
+    track_s = time.perf_counter() - t0
+    cpu_ids = track_movie_nearest_pixel(*track_args, images=images,
+                                        use_flow=True, device="cpu")
+    assert np.array_equal(flow_ids, cpu_ids), "flow tracker: card != CPU"
+    kept = np.intersect1d(flow_ids[0][flow_ids[0] > 0],
+                          flow_ids[-1][flow_ids[-1] > 0]).size
+    print(f"cli: optical_flow_tvl1 {Y}x{X} {flow_ms:.3f} ms per frame pair "
+          f"(CUDA events, 3 calls; {flow_ops} device operations a pair, the "
+          f"card busy {flow_busy:.3f} ms of them), card vs CPU |dflow| > 5e-3 px on "
+          f"{flow_far} of {dflow.numel()} values, mean {float(dflow.mean()):.3g}, "
+          f"max {flow_err:.3g} px; "
+          f"track_movie_nearest_pixel(use_flow=True) {T} frames {track_s:.3f} "
+          f"s, ids == CPU's, {kept} of {int((flow_ids[0] > 0).sum())} frame-1 "
+          f"ids reach frame {T} on {card}")
+    print("cli: seconds per subcommand " + ", ".join(
+        f"{k} {v:.3f}" for k, v in seconds.items()) + f" on {card}")
+    print(f"cli: phase {time.perf_counter() - t_phase:.1f} s on {card}")
+    return launches, unet_launches
 
 
 def host_ms(fn, reps: int) -> float:
@@ -2456,7 +3045,9 @@ def main() -> int:
     check_keras_weights(card)
     check_training(card)
     blur_inputs, blur_launches_cli = check_files(card, movie_z30)
-    check_tissue(card, movie_z30)
+    feed = check_tissue(card, movie_z30)
+    cli_launches, cli_unet_launches = check_cli(card, movie_z30, feed, launches)
+    del feed
     driver_rows = {name: check_driver_blur(name, *x, card)
                    for name, x in blur_inputs.items()}
     del blur_inputs
@@ -2502,6 +3093,8 @@ def main() -> int:
                          launches)[name],
             "launches_unet": unet_launches[name],
             "launches_unet_int8": int8_launches[name],
+            "launches_cli": cli_launches.get(name, 0),
+            "launches_cli_unet_int8": cli_unet_launches.get(name, 0),
             "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "library_ms": r["library_ms"], **at_unet,

@@ -287,10 +287,14 @@ def test_track_movie_nearest_pixel_exact():
                                         frame_valid=valid)
     assert got.dtype == np.int64
     np.testing.assert_array_equal(got, want)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        ttr.track_movie_nearest_pixel(labs, cy, cx, mask,
-                                      images=labs.astype(np.float32),
-                                      use_flow=True)
+    # the TV-L1 flow branch (ops/optical_flow.py) in place of the drifts
+    images = labs.astype(np.float32)
+    want = jtr.track_movie_nearest_pixel(labs, cy, cx, mask, frame_valid=valid,
+                                         images=images, use_flow=True)
+    got = ttr.track_movie_nearest_pixel(labs, cy, cx, mask, frame_valid=valid,
+                                        images=images, use_flow=True,
+                                        device="cpu")
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("type_index", [0, 3, 7, -1, ((1, 2), (0,)), ((), (4,))])

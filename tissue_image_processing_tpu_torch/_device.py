@@ -30,7 +30,9 @@ __all__ = ["LAUNCHES", "BLUR_LAUNCHES", "CONV_LAUNCHES", "KERNEL_SOURCES",
            "host_to_device", "host_floats", "to_host"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
+DEFAULT_BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
+# where built libraries are kept; utils/runtime.enable_compilation_cache moves it
+BUILD_DIR = DEFAULT_BUILD_DIR
 KERNEL_SOURCES = ("blur3d", "flood", "projection", "cc_scan", "conv_s8")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

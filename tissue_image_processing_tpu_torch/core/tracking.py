@@ -22,6 +22,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from tissue_image_processing_tpu_torch._device import resolve_device, to_host
 from tissue_image_processing_tpu_torch._numerics import fma_f32
 from tissue_image_processing_tpu_torch.ops.drift import phase_cross_correlation
 
@@ -289,7 +290,8 @@ def track_movie_nearest_pixel(labels_stack: np.ndarray, cy: np.ndarray,
                               drifts: Optional[np.ndarray] = None,
                               frame_valid: Optional[np.ndarray] = None,
                               images: Optional[np.ndarray] = None,
-                              use_flow: bool = False) -> np.ndarray:
+                              use_flow: bool = False,
+                              device=None) -> np.ndarray:
     """Legacy nearest-pixel tracker (reference ``track_cells_iterator``), on
     the host: each previous-frame centroid, shifted by the drift, samples
     the 3x3-dilated current label map; a row claimed twice keeps its first
@@ -297,9 +299,13 @@ def track_movie_nearest_pixel(labels_stack: np.ndarray, cy: np.ndarray,
     int; cy / cx / mask (T, N) padded per-frame tables. Returns (T, N)
     int64 track ids.
 
-    ``use_flow=True`` (a dense TV-L1 flow map in place of the global drift)
-    needs ``ops/optical_flow.py``, which the port does not have yet (ROADMAP
-    section 1, item 5), and raises ``NotImplementedError``."""
+    With ``use_flow=True`` and ``images`` (T, H, W), the global drift is
+    replaced by a dense TV-L1 flow map (``ops/optical_flow.py``) computed on
+    ``device`` (``None``: the card) for each pair of frames and sampled at
+    the previous centroids (clipped and rounded): the reference's
+    ``use_piv`` branch. The flow is ``optical_flow_tvl1(cur, prev)``, so the
+    cell at previous position ``y`` is looked up at ``y - flow(y)``; only
+    the N sampled values of each pair are read back to the host."""
     from scipy.ndimage import maximum_filter as ndi_max
 
     T, N = cy.shape
@@ -310,9 +316,9 @@ def track_movie_nearest_pixel(labels_stack: np.ndarray, cy: np.ndarray,
     if use_flow and images is None:
         raise ValueError("use_flow=True requires images")
     if use_flow:
-        raise NotImplementedError(
-            "use_flow=True needs ops/optical_flow.py (TV-L1), not ported yet "
-            "(ROADMAP section 1, item 5)")
+        from tissue_image_processing_tpu_torch.ops.optical_flow import (
+            optical_flow_tvl1)
+        dev = resolve_device(device)
     ids = np.zeros((T, N), np.int64)
     first = next((t for t in range(T) if frame_valid[t]), None)
     if first is None:
@@ -325,9 +331,18 @@ def track_movie_nearest_pixel(labels_stack: np.ndarray, cy: np.ndarray,
         if not frame_valid[t]:
             continue
         dil = ndi_max(labels_stack[t], size=(3, 3), mode="constant")
-        py = np.round(cy[prev] - drifts[t, 0]).astype(int)
-        px = np.round(cx[prev] - drifts[t, 1]).astype(int)
         H, W = dil.shape
+        if use_flow:
+            flow = optical_flow_tvl1(images[t], images[prev], device=dev)
+            iy = np.clip(np.round(cy[prev]).astype(int), 0, flow.shape[1] - 1)
+            ix = np.clip(np.round(cx[prev]).astype(int), 0, flow.shape[2] - 1)
+            fy, fx = to_host(flow[:, torch.from_numpy(iy).to(dev),
+                                  torch.from_numpy(ix).to(dev)])[0]
+            py = np.round(cy[prev] - fy).astype(int)
+            px = np.round(cx[prev] - fx).astype(int)
+        else:
+            py = np.round(cy[prev] - drifts[t, 0]).astype(int)
+            px = np.round(cx[prev] - drifts[t, 1]).astype(int)
         ok = mask[prev] & (py >= 0) & (py < H) & (px >= 0) & (px < W)
         cur_rows = np.full(N, -1)
         cur_rows[ok] = dil[py[ok], px[ok]] - 1

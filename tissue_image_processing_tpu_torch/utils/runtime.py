@@ -4,10 +4,9 @@ metrics.
 Port of ``tissue_image_processing_tpu/utils/runtime.py``. ``trace`` is a
 ``torch.profiler`` context (CPU activity, and CUDA where a card is present)
 that writes a Chrome trace into its directory. ``Timer`` and
-``StageMetrics`` are the JAX package's. ``enable_compilation_cache`` has no
-counterpart here: the CUDA kernels are cached by source hash in
-``build/torch_kernels/`` (``_device.build_kernels``) and PyTorch compiles
-nothing else.
+``StageMetrics`` are the JAX package's. ``enable_compilation_cache`` points
+the kernel build cache (not XLA's, which the port does not have) at a
+directory.
 """
 
 from __future__ import annotations
@@ -15,11 +14,31 @@ from __future__ import annotations
 import contextlib
 import os
 import time
+from pathlib import Path
 
-__all__ = ["trace", "Timer", "StageMetrics"]
+__all__ = ["enable_compilation_cache", "trace", "Timer", "StageMetrics"]
 
 _DEFAULT_TRACE_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.dirname(os.path.abspath(__file__)))), "build", "torch_trace")
+
+
+def enable_compilation_cache(path: str = None) -> str:
+    """Keep the built CUDA kernels in ``path`` (default
+    ``build/torch_kernels/`` beside the package) and return it.
+
+    The port compiles no XLA programs: what a process pays once and a later
+    process can reuse is the ``nvcc`` build of ``csrc/*.cu``. Each library
+    is named by a hash of its source (``_device.build_kernels``), so the
+    directory is a persistent cache: a later process loads what an earlier
+    one built, and an edited source is rebuilt. The directory is made here;
+    a library already loaded in this process stays loaded. Raises when the
+    directory cannot be made."""
+    from tissue_image_processing_tpu_torch import _device
+
+    cache = Path(path) if path else _device.DEFAULT_BUILD_DIR
+    cache.mkdir(parents=True, exist_ok=True)
+    _device.BUILD_DIR = cache
+    return str(cache)
 
 
 @contextlib.contextmanager
