@@ -137,7 +137,25 @@ Phases (any failure exits non-zero; no phase catches and continues):
    TV-L1 on a projected 1024^2 frame pair (card vs CPU in the CPU tests'
    class, ms a pair) and the flow tracker over the 8 frames (ids card == CPU); each
    subcommand's seconds;
-10. print the kernel table as one JSON object (launches from the Z=30
+10. "parallel": ``parallel/`` (``check_parallel``) over virtual meshes of
+    four positions on the one card (``devices=[torch.device("cuda")] *
+    4``; on one card the shards take turns on its stream, so the frames/s
+    measure the mesh's overhead, not scaling): the frame-sharded watershed
+    on the headline movie (ids equal to the unsharded chain, the unfused
+    projection's blurs and the flood launched, not the fused kernels;
+    frames/s of both), the chunked form from a ``MovieStore`` (chunk 4, and
+    a padded tail on a T=6 cut), the frame-sharded U-Net at depth 3 / 128
+    filters / bfloat16 (ids equal, ``cc_scan`` launched), the
+    space-sharded projection of two frames tiled to 2048^2 over (frame, y,
+    x) = (1, 2, 2) and (2, 2, 1) against the unsharded precise projection
+    (clip equal; z-maps equal wherever the score's top two planes are more
+    than 1e-5 apart; projections rtol 2e-4 / atol 2e-3) with ``blur3d`` at
+    each shard shape bit for bit and timed, the (data 2 x model 2) training
+    step against ``make_train_step`` (float32, the CPU tests' tolerances)
+    and 10 bfloat16 steps of each (steps/s), the card against the CPU on
+    the CPU tests' tiny shapes, and the host synchronisations inside each
+    path's shard bodies;
+11. print the kernel table as one JSON object (launches from the Z=30
     watershed run, the component minimum's from the U-Net run, the int8
     conv's from the int8 U-Net run, with its launches by form — its times
     summed over one forward's 14 convs at B = 8, the generic form's beside
@@ -145,7 +163,9 @@ Phases (any failure exits non-zero; no phase catches and continues):
     kernel's launches by function of phase 3; the blur at the driver's
     shapes as three rows ``blur3d_driver_*`` with the CLI run's launches;
     ``launches_cli`` / ``launches_cli_unet_int8``: the "cli" phase's two
-    pipeline runs), then the card's line, and as the last line
+    pipeline runs; ``launches_parallel``: the "parallel" phase's runs by
+    path; the blur at the space shards' shapes as six rows
+    ``blur3d_shard_*``), then the card's line, and as the last line
     ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or the JAX package.
@@ -153,6 +173,7 @@ Imports nothing of JAX or the JAX package.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import importlib
@@ -161,6 +182,7 @@ import json
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 
@@ -1231,7 +1253,7 @@ def bound_int8(nbytes: float, nops: float):
 
 def random_unet_config(frame, depth: int, base_filters: int, batch: int,
                        seed: int = 0, share: float = 0.5,
-                       quantized: bool = False):
+                       quantized: bool = False, device: str = "cuda"):
     """``movie_pipeline(unet=...)`` configuration with seeded random weights:
     he / lecun-normal convs, BatchNorm scales, biases and running statistics
     drawn away from the identity and folded to shifts by the predictor, and
@@ -1255,9 +1277,9 @@ def random_unet_config(frame, depth: int, base_filters: int, batch: int,
     model = random_unet(depth, base_filters, seed)
     pred = SegmentationPredictor(None, (2, Y, X), depth=depth,
                                  base_filters=base_filters,
-                                 variables=model.state_dict())
+                                 variables=model.state_dict(), device=device)
     assert pred.model.norm == "shift", "BatchNorm was not folded"
-    stack = torch.from_numpy(np.ascontiguousarray(frame)).cuda()
+    stack = torch.from_numpy(np.ascontiguousarray(frame)).to(device)
     prj = (project_timepoint_auto(stack)[0] if stack.shape[1] > 1
            else stack[:, 0].to(torch.float32))
     x, (px, py) = prepare_batch(prj[None])
@@ -2979,6 +3001,611 @@ def check_cli(card: str, movie, feed, ws_launches: dict, device: str = "cuda",
     return launches, unet_launches
 
 
+# --- phase 10: parallel/ on the card ------------------------------------------
+
+# blur3d's shapes on the space shards of a (30, side, side) frame: the
+# halo-extended blocks of the pre-blur (4 px), the score blur's z pass
+# (120 px; its y / x passes are band matrices) and the mask blur (8 px)
+def shard_blurs(Z: int, side: int, y_shards: int, x_shards: int) -> dict:
+    Yl, Xl = side // y_shards, side // x_shards
+    ext = lambda h: (Z, Yl + 2 * h, Xl + 2 * h if x_shards > 1 else Xl)
+    tag = f"{y_shards}x{x_shards}"
+    return {f"pre_blur_{tag}": (*ext(4), 5, 9, 9),
+            f"score_blur_{tag}": (*ext(120), 5, 1, 1),
+            f"mask_blur_{tag}": (*ext(8), 9, 17, 17)}
+
+
+@contextlib.contextmanager
+def count_syncs(counts: dict, sites: collections.Counter, key: str, targets):
+    """While open, each call of a function in ``targets`` ((module, name)
+    pairs: the shard bodies of a path) runs under
+    ``torch.cuda.set_sync_debug_mode("warn")``; its host synchronisation
+    warnings are added to ``counts[key]`` and, by the source line that
+    raised each, to ``sites``."""
+    import os
+    import warnings
+
+    import torch
+
+    counts.setdefault(key, 0)
+    origs = [(mod, name, getattr(mod, name)) for mod, name in targets]
+
+    def wrap(fn):
+        def counted(*args, **kwargs):
+            with warnings.catch_warnings(record=True) as seen:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    return fn(*args, **kwargs)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                    syncs = [w for w in seen if "synchroniz" in str(w.message)]
+                    counts[key] += len(syncs)
+                    sites.update(f"{os.path.relpath(w.filename)}:{w.lineno}"
+                                 for w in syncs)
+        return counted
+
+    for mod, name, fn in origs:
+        setattr(mod, name, wrap(fn))
+    try:
+        yield counts
+    finally:
+        for mod, name, fn in origs:
+            setattr(mod, name, fn)
+
+
+def synced_seconds(fn, dev):
+    """(result, host-clock seconds) of ``fn()``, the device synchronised
+    before and after."""
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def unsharded_chain(movie, frame_fn, capacity: int, dev):
+    """``tests/test_parallel.py:60-74`` in the port: the per-frame chain on
+    ``dev``, ``compute_drift_chain`` and ``track_movie``."""
+    import torch
+
+    from tissue_image_processing_tpu_torch.core.tracking import (
+        compute_drift_chain, track_movie)
+
+    outs = [frame_fn(torch.from_numpy(np.ascontiguousarray(s)).to(dev))
+            for s in movie]
+    refs, cy, cx, area, mask = (torch.stack(o) for o in zip(*outs))
+    return track_movie(cy, cx, area, mask, drifts=compute_drift_chain(refs),
+                       capacity=2 * capacity)
+
+
+@dataclasses.dataclass
+class ParallelRun:
+    """What the "parallel" phase's steps share: the card's line, the
+    device, the virtual mesh's devices, the host synchronisations counted
+    by path and the launches by path."""
+    card: str
+    dev: "object"
+    shards: int
+    syncs: dict = dataclasses.field(default_factory=dict)
+    sync_sites: collections.Counter = dataclasses.field(
+        default_factory=collections.Counter)
+    launches: dict = dataclasses.field(default_factory=dict)
+
+    @property
+    def on_card(self) -> bool:
+        return self.dev.type == "cuda"
+
+    @property
+    def devs(self) -> list:
+        return [self.dev] * self.shards
+
+    def run(self, name: str, fn, targets):
+        """(result, seconds) of ``fn()`` with the counters zeroed before and
+        read after into ``launches[name]``, its host synchronisations
+        counted inside ``targets`` (the path's shard bodies)."""
+        import tissue_image_processing_tpu_torch as tipt
+
+        tipt.reset_launches()
+        with count_syncs(self.syncs, self.sync_sites, name,
+                         targets if self.on_card else []):
+            out, secs = synced_seconds(fn, self.dev)
+        self.launches[name] = {k: v for k, v in tipt.LAUNCHES.items() if v}
+        return out, secs
+
+
+def parallel_frames(par: ParallelRun, movie, unet_depth: int,
+                    unet_filters: int, capacity: int, block_size: int,
+                    min_cells: int, min_unet_cells: int) -> None:
+    """Steps 1-3 of the "parallel" phase: the frame-sharded watershed, its
+    chunked form from a ``MovieStore`` and the frame-sharded U-Net, each
+    against the unsharded chain on the same device."""
+    import os
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from tissue_image_processing_tpu_torch.core.cell_table import frame_cellinfo
+    from tissue_image_processing_tpu_torch.io.movie import MovieStore
+    from tissue_image_processing_tpu_torch.models.predictor import (
+        find_desired_shape, unet_postprocess)
+    from tissue_image_processing_tpu_torch.models.unet import UNet
+    from tissue_image_processing_tpu_torch.ops.brightness import (
+        normalize_channel)
+    from tissue_image_processing_tpu_torch.ops.watershed import (
+        watershed_segmentation)
+    from tissue_image_processing_tpu_torch.parallel import pipeline as ppipe
+    from tissue_image_processing_tpu_torch.projection.surface import (
+        time_point_surface_projection)
+
+    dev, shards, card = par.dev, par.shards, par.card
+    T, _, Z, H, W = movie.shape
+    bodies = [(ppipe, "_map_frames"), (ppipe, "_shifts")]
+
+    # 1. the frame-sharded watershed
+    kw = dict(capacity=capacity, block_size=block_size)
+    fmesh = ppipe.make_frame_mesh(shards, devices=par.devs)
+    pipe = ppipe.sharded_movie_pipeline(fmesh, **kw)
+    pipe(movie)   # warm: library loads, cuFFT plans, allocator
+    ids, secs = par.run("watershed", lambda: pipe(movie), bodies)
+    if par.on_card:
+        got = par.launches["watershed"]
+        missing = [k for k in WATERSHED_KERNELS if not got.get(k)]
+        assert not missing, f"kernels not launched by the sharded path: {missing}"
+        assert not any(got.get(k) for k in PROJECTION_KERNELS), got
+        # the unfused projection's three blurs and the watershed pre-blur,
+        # once a frame each; the flood's five launches a frame
+        blur_launches({(Z, H, W, 5, 9, 9): T, (Z, H // 4, W // 4, 5, 1, 1): T,
+                       (Z, H, W, 9, 17, 17): T, (1, H, W, 1, 25, 25): T})
+        assert got["diffusion_bf"] == T and got["settle"] == T, got
+
+    def ws_frame(stack):
+        proj, _ = time_point_surface_projection(stack.to(torch.float32),
+                                                airyscan=False)
+        labels = watershed_segmentation(proj[0], 0.2, 3.0, block_size)
+        table = frame_cellinfo(labels, capacity=capacity)
+        return proj[0], table.cy, table.cx, table.area, table.valid_mask()
+
+    want, secs1 = synced_seconds(
+        lambda: unsharded_chain(movie, ws_frame, capacity, dev), dev)
+    assert ids.device.type == dev.type and tuple(ids.shape) == (T, capacity)
+    assert torch.equal(ids, want), "sharded watershed ids differ from the chain"
+    assert int((ids > 0).sum(1).min()) > min_cells, "too few tracked cells"
+    print(f"parallel: sharded_movie_pipeline {T} x {H}^2 Z={Z} over "
+          f"{shards} frame shards: ids equal to the unsharded chain; "
+          f"{T / secs:.3f} frames/s sharded ({secs:.3f} s), "
+          f"{T / secs1:.3f} frames/s unsharded chain ({secs1:.3f} s), same "
+          f"host clock, synchronised, on {card}; launches "
+          f"{par.launches['watershed']}")
+
+    # 2. chunked, from a MovieStore under build/
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build, prefix="smoke_parallel_") as d:
+        path = os.path.join(d, "movie.npy")
+        store = MovieStore.create(path, movie.shape, movie.dtype)
+        for t in range(T):
+            store.write_frame(t, movie[t])
+        store.data.flush()
+        del store
+        store = MovieStore.open(path)
+        seen = []
+        got = ppipe.sharded_movie_pipeline_chunked(
+            fmesh, store, chunk_frames=shards, on_chunk=lambda t0, i: seen.append(
+                (t0, i.shape[0])), **kw)
+        assert np.array_equal(got, ids.cpu().numpy()), "chunked ids differ"
+        assert seen == [(t, shards) for t in range(0, T, shards)], seen
+        cut = MovieStore(np.asarray(store.data[:T - 2]))
+        seen = []
+        got = ppipe.sharded_movie_pipeline_chunked(
+            fmesh, cut, chunk_frames=shards, on_chunk=lambda t0, i: seen.append(
+                (t0, i.shape[0])), **kw)
+        assert np.array_equal(got, ids.cpu().numpy()[:T - 2]), \
+            "chunked ids with a padded tail differ"
+        assert seen == [(t0, min(shards, T - 2 - t0))
+                        for t0 in range(0, T - 2, shards)], seen
+        del store, cut
+    print(f"parallel: sharded_movie_pipeline_chunked from a MovieStore: chunk "
+          f"{shards} == unchunked; chunk {shards} on a T={T - 2} cut (padded "
+          f"tail) == the first {T - 2} frames; on_chunk saw {seen}")
+
+    # 3. the frame-sharded U-Net
+    cfg, share = random_unet_config(movie[0], depth=unet_depth,
+                                    base_filters=unet_filters, batch=8,
+                                    device=dev.type)
+    with torch.device(dev):
+        model = UNet(depth=unet_depth, base_filters=unet_filters,
+                     dtype=torch.bfloat16, norm=cfg["norm"])
+    model.load_state_dict(cfg["params"])
+    model.eval().requires_grad_(False)
+    upipe = ppipe.sharded_unet_pipeline(fmesh, model, capacity=capacity)
+    upipe(cfg["params"], movie)   # warm: cuDNN plans
+    uids, usecs = par.run("unet", lambda: upipe(cfg["params"], movie), bodies)
+
+    def unet_frame(stack):
+        proj, _ = time_point_surface_projection(stack.to(torch.float32),
+                                                airyscan=False)
+        x = torch.stack([normalize_channel(c) for c in proj]).permute(2, 1, 0)
+        px, py = find_desired_shape(W, H)
+        x = torch.nn.functional.pad(x, (0, 0, py - H, 0, px - W, 0))
+        with torch.no_grad():
+            pred = model(x[None])[0][px - W:, py - H:]
+        labels, _ = unet_postprocess(pred.to(torch.float32))
+        table = frame_cellinfo(labels.T.contiguous(), capacity=capacity)
+        return proj[0], table.cy, table.cx, table.area, table.valid_mask()
+
+    uwant, usecs1 = synced_seconds(
+        lambda: unsharded_chain(movie, unet_frame, capacity, dev), dev)
+    assert torch.equal(uids, uwant), "sharded U-Net ids differ from the chain"
+    assert int((uids > 0).sum(1).min()) > min_unet_cells, \
+        "too few tracked U-Net cells"
+    if par.on_card:
+        assert par.launches["unet"].get("cc_scan"), par.launches["unet"]
+        assert not par.launches["unet"].get("diffusion_bf"), par.launches["unet"]
+    print(f"parallel: sharded_unet_pipeline depth {unet_depth}, "
+          f"{unet_filters} filters, bfloat16 (p0 > 0.1 on {share:.3f} of frame "
+          f"0) over {shards} frame shards: ids equal to the unsharded chain; "
+          f"{T / usecs:.3f} frames/s sharded, {T / usecs1:.3f} unsharded, on "
+          f"{card}; launches {par.launches['unet']}")
+
+
+def parallel_space(par: ParallelRun, movie) -> dict:
+    """Step 4 of the "parallel" phase: ``sharded_projection`` of two frames
+    tiled 2 x 2 over (frame, y, x) = (1, 2, 2) and (2, 2, 1) against the
+    unsharded precise projection, and ``blur3d`` at every shard shape on
+    its input. Returns the blur rows by name (on the card)."""
+    import torch
+
+    from tissue_image_processing_tpu_torch.ops.filters import gaussian_blur
+    from tissue_image_processing_tpu_torch.ops.percentile import (
+        masked_percentile)
+    from tissue_image_processing_tpu_torch.parallel import mesh as pmesh
+    from tissue_image_processing_tpu_torch.parallel import spatial as pspat
+    from tissue_image_processing_tpu_torch.projection.surface import (
+        time_point_surface_projection)
+
+    dev, shards, card = par.dev, par.shards, par.card
+    Z = movie.shape[2]
+    big = np.stack([np.tile(movie[t], (1, 1, 2, 2)) for t in range(2)])
+    side = big.shape[-1]
+    shapes = {}
+    for y_sh, x_sh in ((2, 2), (2, 1)):
+        shapes.update(shard_blurs(Z, side, y_sh, x_sh))
+    want_p, want_z, scores, clips, secs1 = [], [], [], [], 0.0
+    def upload_and_project(frame):
+        stack = torch.from_numpy(frame).to(dev)
+        return stack, time_point_surface_projection(stack, airyscan=False,
+                                                    precise=True)
+
+    for t in range(2):   # timed with its upload, as the sharded runs are
+        (stack, (p, z)), s1 = synced_seconds(
+            lambda: upload_and_project(big[t]), dev)
+        secs1 += s1
+        ref = stack[0].to(torch.float32)
+        clip = masked_percentile(ref, ref > 0, 95.0)
+        ref = torch.where((ref > clip) & (clip > 0), clip, ref)
+        score = gaussian_blur(gaussian_blur(ref, (0.5, 1.0, 1.0)),
+                              (0.5, 30.0, 30.0))
+        top = torch.topk(score, 2, dim=0).values
+        scores.append(((top[0] - top[1]) > 1e-5 * top[0].abs()).cpu())
+        want_p.append(p.cpu())
+        want_z.append(z.cpu())
+        clips.append(float(clip))
+        del stack, ref, score, top
+    print(f"parallel: unsharded precise projection of 2 frames of (2, {Z}, "
+          f"{side}, {side}): {secs1:.3f} s, upload included, on {card}")
+    captured_all, shard_launches = {}, {}
+    for f_sh, y_sh, x_sh in ((1, 2, 2), (2, 2, 1)):
+        smesh = pspat.make_space_mesh(shards, frame_shards=f_sh,
+                                      x_shards=x_sh, devices=par.devs)
+        proj_fn = pspat.sharded_projection(smesh, airyscan=False)
+        tag = f"{y_sh}x{x_sh}"
+        want_shapes = {v for k, v in shapes.items() if k.endswith(tag)}
+        with capture_blur_inputs(want_shapes) as captured:
+            proj_fn(big)   # warm, and the blur inputs at the shard shapes
+        captured_all.update(captured)
+        (p, z), ssecs = par.run(f"spatial_{tag}", lambda: proj_fn(big),
+                                [(pspat, "_project_block")])
+        # one launch at each shape a frame and space shard
+        shard_launches.update({s: 2 * y_sh * x_sh for s in want_shapes})
+        if par.on_card:
+            blur_launches({s: shard_launches[s] for s in want_shapes})
+        grid_shape = smesh.devices.shape[1:]
+        for t in range(2):
+            ref = torch.from_numpy(big[t, 0]).to(dev).to(torch.float32)
+            grid = pmesh._object_array(
+                [c for r in torch.chunk(ref, y_sh, 1)
+                 for c in torch.chunk(r, x_sh, 2)], grid_shape)
+            clip = pspat.clip_percentile_sharded(
+                grid, pmesh._object_array([g > 0 for g in grid.flat],
+                                          grid_shape), 95.0)
+            assert all(float(c) == clips[t] for c in clip.flat), \
+                f"sharded clip value {float(clip[0, 0])} != {clips[t]}"
+            del ref, grid
+            gz, gp = z[t].cpu(), p[t].cpu()
+            differ = gz != want_z[t]
+            assert not bool((differ & scores[t]).any()), \
+                f"z-map differs where the score's top two planes are apart ({tag})"
+            # a plane chosen otherwise at a tie moves the one-hot mask blur
+            # (taps 9 x 17 x 17) within 8 px of it, and the projection there;
+            # everywhere else the projection is held to the JAX class
+            reach = torch.nn.functional.max_pool2d(
+                differ[None, None].float(), 17, 1, 8)[0, 0] > 0
+            off = (gp - want_p[t]).abs() > 2e-3 + 2e-4 * want_p[t].abs()
+            torch.testing.assert_close(gp[:, ~reach], want_p[t][:, ~reach],
+                                       rtol=2e-4, atol=2e-3)
+            print(f"parallel: sharded_projection (frame, y, x) = ({f_sh}, "
+                  f"{y_sh}, {x_sh}) frame {t}: clip {clips[t]} equal, z-map "
+                  f"differs on {int(differ.sum())} of {differ.numel()} pixels, "
+                  f"each where the unsharded score's top two planes are within "
+                  f"1e-5 relative ({int((~scores[t]).sum())} such pixels); "
+                  f"projection within rtol 2e-4 / atol 2e-3 on the "
+                  f"{int((~reach).sum())} pixels farther than 8 px from them "
+                  f"(max_abs_err {max_abs_err(gp[:, ~reach], want_p[t][:, ~reach]):.3g}),"
+                  f" {int(off.any(0).sum())} pixels outside the class within "
+                  f"their reach (max_abs_err {max_abs_err(gp, want_p[t]):.3g})")
+        print(f"parallel: sharded_projection over ({f_sh}, {y_sh}, {x_sh}): "
+              f"{ssecs:.3f} s for 2 frames of {side}^2, upload included, on "
+              f"{card}; launches {par.launches[f'spatial_{tag}']}")
+        del p, z
+    del big
+    rows = {}
+    if par.on_card:
+        for name, shape in shapes.items():
+            x, kz, ky, kx = captured_all.pop(shape)
+            rows[name] = dict(check_driver_blur(f"shard_{name}", x, kz, ky,
+                                                kx, card),
+                              launches=shard_launches[shape])
+            del x
+    return rows
+
+
+def parallel_training(par: ParallelRun, filters: int, batch: int,
+                      side: int) -> None:
+    """Step 5 of the "parallel" phase: ``unet_train_step_sharded`` over
+    (data 2 x model 2) with the training cell's recipe against
+    ``make_train_step``, one step each from the same state and batch:
+
+    - in float32 with TF32 off: the loss, parameters and BatchNorm
+      statistics to the CPU tests' tolerances (``tests/test_torch_train.py``:
+      loss rel 1e-5, parameters 2 x lr, statistics 1e-6); the gradients'
+      difference is printed beside the unsharded step's own difference
+      between two runs (cuDNN's float32 kernels are not deterministic, and
+      at this size their sums spread past those tests' 1e-4 of the largest
+      gradient: PERF.md section 6);
+    - in float64 (``UNet(dtype=torch.float64)``, ``double()``) on a
+      quarter of the batch (float64 doubles the memory): all of those
+      tolerances, each gradient to 1e-4 of its largest magnitude
+      included. A per-shard BatchNorm or a lost gradient sum misses them
+      by orders of magnitude;
+
+    then 10 bfloat16 steps of each (steps/s)."""
+    import torch
+
+    from tissue_image_processing_tpu_torch.models import train
+    from tissue_image_processing_tpu_torch.models.unet import UNet
+    from tissue_image_processing_tpu_torch.parallel import mesh as pmesh
+    from tissue_image_processing_tpu_torch.utils.synthetic import (
+        training_frames)
+
+    dev, card = par.dev, par.card
+    tmesh = pmesh.Mesh(pmesh._object_array(par.devs[:4], (2, 2)),
+                       ("data", "model"))
+    images, labels = training_frames(2, 2 * side, 2 * side, seed=3)
+    bx, by = next(train.crop_generator(images, labels, batch, side, seed=0))
+    lr = 1e-5
+
+    def fresh(dtype):
+        net = UNet(depth=2, base_filters=filters, dropout_rate=0.0,
+                   dtype=dtype)
+        state, tx = train.create_train_state(net, (side, side, 2), lr, seed=0,
+                                             device=dev)
+        if dtype == torch.float64:
+            net.double()   # in place: the optimizer keeps its parameters
+        return net, state, tx
+
+    def one_step(dtype, sharded: bool, n: int):
+        """(loss, gradients, state_dict) after one step from seed 0 on the
+        batch's first ``n`` crops."""
+        net, state, tx = fresh(dtype)
+        if sharded:
+            state = pmesh.shard_params(tmesh, state)
+            state, loss = pmesh.unet_train_step_sharded(
+                tmesh, net, state.optimizer)(state, pmesh.shard_batch(
+                    tmesh, bx[:n]), by[:n])
+            sp = state.model
+            grads = {k: (g[0] if sp.specs[k] is None else
+                         torch.cat(g, sp.specs[k]))
+                     for k, g in ((k, [p.grad for p in ps])
+                                  for k, ps in sp.shards.items())
+                     if g[0] is not None}
+            out = float(loss), grads, sp.state_dict()
+        else:
+            state, loss, _ = train.make_train_step(net, tx)(state, bx[:n],
+                                                            by[:n])
+            out = (float(loss), {k: p.grad for k, p in net.named_parameters()},
+                   net.state_dict())
+        if par.on_card:
+            torch.cuda.empty_cache()
+        return out
+
+    def worst_gradient(a, b) -> float:
+        return max(float((a[1][k] - g).abs().max()) / float(g.abs().max())
+                   for k, g in b[1].items())
+
+    def hold(a, b, what: str, gradients: bool) -> None:
+        assert abs(a[0] - b[0]) <= 1e-5 * abs(b[0]), (what, a[0], b[0])
+        if gradients:
+            assert worst_gradient(a, b) <= 1e-4, (what, worst_gradient(a, b))
+        for k, v in b[2].items():
+            if "num_batches" not in k:
+                torch.testing.assert_close(
+                    a[2][k], v, rtol=0,
+                    atol=1e-6 if "running" in k else 2 * lr, msg=what + k)
+
+    def peak_gib() -> float:
+        if not par.on_card:
+            return float("nan")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        torch.cuda.reset_peak_memory_stats()
+        return peak
+
+    peak_gib()
+    got, want = one_step(torch.float32, True, batch), one_step(
+        torch.float32, False, batch)
+    again = one_step(torch.float32, False, batch)
+    hold(got, want, "float32 ", gradients=False)
+    print(f"parallel: unet_train_step_sharded over (data 2 x model 2), depth "
+          f"2, {filters} filters, batch {batch}, {side}^2, float32 (TF32 "
+          f"off): loss {got[0]:.7f} vs {want[0]:.7f} unsharded, parameters "
+          f"within 2 x lr, BatchNorm statistics within 1e-6; worst gradient "
+          f"difference {worst_gradient(got, want):.3g} of its largest "
+          f"magnitude, the unsharded step against a second run of itself "
+          f"{worst_gradient(again, want):.3g}; peak memory {peak_gib():.2f} "
+          f"GiB")
+    del got, want, again
+    # float64 takes twice float32's memory: a quarter of the batch
+    n64 = max(2, batch // 4)
+    got, want = one_step(torch.float64, True, n64), one_step(
+        torch.float64, False, n64)
+    hold(got, want, "float64 ", gradients=True)
+    print(f"parallel: the same in float64 on {n64} crops: loss "
+          f"{got[0]:.12f} vs {want[0]:.12f}, worst gradient difference "
+          f"{worst_gradient(got, want):.3g} of its largest magnitude, "
+          f"parameters within 2 x lr, BatchNorm statistics within 1e-6; peak "
+          f"memory {peak_gib():.2f} GiB")
+    del got, want
+
+    net, state, tx = fresh(torch.bfloat16)
+    sstate = pmesh.shard_params(tmesh, state)
+    holder = types.SimpleNamespace(step=pmesh.unet_train_step_sharded(
+        tmesh, net, sstate.optimizer))
+    xs = pmesh.shard_batch(tmesh, bx)
+    holder.step(sstate, xs, by)   # warm
+    losses = []
+
+    def ten_sharded():
+        for _ in range(10):
+            losses.append(holder.step(sstate, xs, by)[1])
+
+    _, tsecs = par.run("train", ten_sharded, [(holder, "step")])
+    assert all(bool(torch.isfinite(loss)) for loss in losses)
+    del net, state, tx, sstate, holder, xs
+    ref_net, ref_state, ref_tx = fresh(torch.bfloat16)
+    ustep = train.make_train_step(ref_net, ref_tx)
+    ustep(ref_state, bx, by)   # warm
+
+    def ten_unsharded():
+        for _ in range(10):
+            ustep(ref_state, bx, by)
+
+    _, usecs = synced_seconds(ten_unsharded, dev)
+    print(f"parallel: 10 bfloat16 training steps (depth 2, {filters} "
+          f"filters, batch {batch}, {side}^2): {10 / tsecs:.3f} steps/s "
+          f"sharded over (data 2 x model 2), {10 / usecs:.3f} steps/s "
+          f"unsharded, on {card}")
+
+
+def parallel_card_vs_cpu(par: ParallelRun) -> None:
+    """Step 6 of the "parallel" phase: the card against the CPU on the CPU
+    tests' tiny shapes: sharded ids equal, space-sharded z-maps equal and
+    projections within rtol 2e-4 / atol 2e-3."""
+    import torch
+
+    from tissue_image_processing_tpu_torch.parallel import pipeline as ppipe
+    from tissue_image_processing_tpu_torch.parallel import spatial as pspat
+
+    rng = np.random.default_rng(0)
+    zz = np.arange(4, dtype=np.float32).reshape(4, 1, 1)
+    tiny = (rng.random((8, 2, 1, 64, 64)).astype(np.float32) * 1000.0
+            * np.exp(-((zz - 2.0) ** 2) / 2.0)[None, None])
+    cpus = [torch.device("cpu")] * par.shards
+    small = dict(capacity=64, block_size=31)
+    a, b = (ppipe.sharded_movie_pipeline(ppipe.make_frame_mesh(
+        par.shards, devices=d), **small)(tiny) for d in (par.devs, cpus))
+    assert torch.equal(a.cpu(), b), "sharded ids: card != CPU"
+    sm = np.random.default_rng(5).random((2, 2, 4, 16, 64)).astype(
+        np.float32) * 5000
+    (gp, gz), (wp, wz) = (pspat.sharded_projection(pspat.make_space_mesh(
+        par.shards, frame_shards=1, x_shards=2, devices=d))(sm)
+        for d in (par.devs, cpus))
+    assert torch.equal(gz.cpu(), wz), "z-maps: card != CPU"
+    torch.testing.assert_close(gp.cpu(), wp, rtol=2e-4, atol=2e-3)
+    print(f"parallel: card vs CPU on tiny shapes: sharded ids equal "
+          f"({int((a > 0).sum())} tracked), space-sharded z-maps equal, "
+          f"projections max_abs_err {max_abs_err(gp.cpu(), wp):.3g}")
+
+
+def check_parallel(card: str, movie, device: str = "cuda", shards: int = 4,
+                   unet_depth: int = 3, unet_filters: int = 128,
+                   train_filters: int = 128, train_batch: int = 32,
+                   train_side: int = 256, capacity: int = 1024,
+                   block_size: int = 101, min_cells: int = 200,
+                   min_unet_cells: int = 10):
+    """The "parallel" phase: ``parallel/`` on virtual meshes of ``shards``
+    positions on one device (``devices=[torch.device("cuda")] * shards``).
+    On one card the shards run one after the other on its stream: the
+    frames/s say what the mesh costs, not what it scales to.
+
+    1. ``sharded_movie_pipeline`` on the raw headline movie (capacity 1024,
+       block 101): ids equal to the unsharded chain's on the card; the
+       unfused projection's blurs, the diffusions, the settle and its mask
+       launched, the fused projection kernels not; frames/s of both;
+    2. ``sharded_movie_pipeline_chunked`` fed from an ``io/movie.MovieStore``
+       of the movie under ``build/`` (removed at the end): chunk 4 equal to
+       the unchunked ids, and chunk 4 on a T=6 cut (a padded tail chunk)
+       equal to their first 6 frames; ``on_chunk`` sees real frames only;
+    3. ``sharded_unet_pipeline`` at depth 3 / 128 filters / bfloat16 with
+       ``utils/synthetic.py:random_unet`` weights: ids equal to the
+       per-frame unsharded chain; ``cc_scan`` launched;
+    4. ``sharded_projection`` of two frames tiled 2 x 2 to 2048^2 over
+       (frame, y, x) = (1, 2, 2) and (2, 2, 1) against
+       ``time_point_surface_projection(precise=True)``: the clip value
+       equal; z-maps equal wherever the unsharded score's top two planes
+       differ by more than 1e-5 relative (the other pixels counted); the
+       projections within rtol 2e-4 / atol 2e-3 farther than the mask
+       blur's 8 px from a z-map difference (the pixels within counted);
+       every ``blur3d`` call at a shard shape bit for bit against its plain
+       version on its input, timed by graph replay, its launches counted
+       by shape;
+    5. ``unet_train_step_sharded`` over (data 2 x model 2) with the training
+       cell's recipe (depth 2, 128 filters, batch 32, 256^2, dropout 0):
+       one float32 step (TF32 off) against ``make_train_step``'s within the
+       CPU tests' tolerances but for the gradients, whose difference is
+       printed beside the unsharded step's own run-to-run spread; one
+       float64 step on 8 crops within all of them; then 10 bfloat16 steps
+       of each (steps/s);
+    6. the card against the CPU on the CPU tests' tiny shapes;
+    7. the host synchronisations inside the shard bodies of each path
+       (``torch.cuda.set_sync_debug_mode("warn")``), printed, not a gate.
+
+    ``device`` and the sizes exist for a dry run on the CPU (no launch,
+    timing or synchronisation counts there, no step 6). Returns (launches
+    by path, blur3d shard rows)."""
+    import torch
+
+    t_phase = time.perf_counter()
+    par = ParallelRun(card, torch.device(device), shards)
+    print(f"parallel: torch.cuda.device_count() = {torch.cuda.device_count()}"
+          f"; virtual meshes of {shards} positions on {par.dev}")
+    parallel_frames(par, movie, unet_depth, unet_filters, capacity,
+                    block_size, min_cells, min_unet_cells)
+    rows = parallel_space(par, movie)
+    parallel_training(par, train_filters, train_batch, train_side)
+    if par.on_card:
+        parallel_card_vs_cpu(par)
+        print(f"parallel: host synchronisations inside the shard bodies "
+              f"(set_sync_debug_mode warn; tracker excluded): {par.syncs}; "
+              f"by source line: {dict(par.sync_sites.most_common())}")
+    print(f"parallel: phase {time.perf_counter() - t_phase:.1f} s on {card}")
+    return par.launches, rows
+
+
 def host_ms(fn, reps: int) -> float:
     """Median host-clock ms of ``reps`` calls (the dry run on the CPU)."""
     times = []
@@ -3048,6 +3675,7 @@ def main() -> int:
     feed = check_tissue(card, movie_z30)
     cli_launches, cli_unet_launches = check_cli(card, movie_z30, feed, launches)
     del feed
+    par_launches, shard_rows = check_parallel(card, movie_z30)
     driver_rows = {name: check_driver_blur(name, *x, card)
                    for name, x in blur_inputs.items()}
     del blur_inputs
@@ -3095,6 +3723,8 @@ def main() -> int:
             "launches_unet_int8": int8_launches[name],
             "launches_cli": cli_launches.get(name, 0),
             "launches_cli_unet_int8": cli_unet_launches.get(name, 0),
+            "launches_parallel": {path: got.get(name, 0) for path, got in
+                                  par_launches.items() if path != "train"},
             "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "library_ms": r["library_ms"], **at_unet,
@@ -3106,6 +3736,16 @@ def main() -> int:
             "name": f"blur3d_driver_{name}", "route": "cuda",
             "source": KERNEL_SOURCE["blur3d"], "replaces": REPLACES["blur3d"],
             "shape": list(r["shape"]), "launches": blur_launches_cli[name],
+            "max_abs_err": r["err"], "ms": r["device_ms"],
+            "events_ms": r["ms"], "events_ms_min": r["ms_min"],
+            "events_ms_max": r["ms_max"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+            "library_ms": r["library_ms"]})
+    for name, r in shard_rows.items():  # blur3d at the space shards' shapes
+        table.append({
+            "name": f"blur3d_shard_{name}", "route": "cuda",
+            "source": KERNEL_SOURCE["blur3d"], "replaces": REPLACES["blur3d"],
+            "shape": list(r["shape"]), "launches": r["launches"],
             "max_abs_err": r["err"], "ms": r["device_ms"],
             "events_ms": r["ms"], "events_ms_min": r["ms_min"],
             "events_ms_max": r["ms_max"], "plain_ms": r["plain_ms"],

@@ -212,9 +212,10 @@ def stack_tables(tables: List[CellTable], cat: bool = False) -> CellTable:
 
 
 def _frame_cellinfo_impl(labels, capacity, max_neighbors, min_cell_area,
-                         max_cell_area, neighbor_compact_k
+                         max_cell_area, intensity, with_neighbors,
+                         neighbor_compact_k
                          ) -> Tuple[CellTable, torch.Tensor]:
-    props = regionprops(labels, num_labels=capacity)
+    props = regionprops(labels, num_labels=capacity, intensity=intensity)
     exists = props["exists"].clone()
     exists[0] = False
     area = torch.where(exists, props["area"], 0.0)[1:capacity + 1]
@@ -223,17 +224,24 @@ def _frame_cellinfo_impl(labels, capacity, max_neighbors, min_cell_area,
     mean_area = area.sum() / n_cells
     valid = (exists_c & (area < max_cell_area * mean_area)
              & (area > min_cell_area * mean_area)).to(torch.int32)
-    # the reference only inserts pairs whose window-max cell is valid
-    working = torch.cat([torch.zeros(1, dtype=torch.bool, device=labels.device),
-                         valid == 1])
-    if neighbor_compact_k is not None:
-        adj, overflow = adjacency_matrix_checked(
-            labels, num_labels=capacity, working_mask=working,
-            compact_k=neighbor_compact_k)
+    overflow = torch.zeros((), dtype=torch.bool, device=labels.device)
+    if with_neighbors:
+        # the reference only inserts pairs whose window-max cell is valid
+        working = torch.cat([torch.zeros(1, dtype=torch.bool,
+                                         device=labels.device), valid == 1])
+        if neighbor_compact_k is not None:
+            adj, overflow = adjacency_matrix_checked(
+                labels, num_labels=capacity, working_mask=working,
+                compact_k=neighbor_compact_k)
+        else:
+            adj = adjacency_matrix(labels, num_labels=capacity,
+                                   working_mask=working)
+        nbrs, counts = neighbor_lists(adj, max_neighbors=max_neighbors)
     else:
-        adj = adjacency_matrix(labels, num_labels=capacity, working_mask=working)
-        overflow = torch.zeros((), dtype=torch.bool, device=labels.device)
-    nbrs, counts = neighbor_lists(adj, max_neighbors=max_neighbors)
+        nbrs = torch.zeros((capacity + 1, max_neighbors), dtype=torch.int32,
+                           device=labels.device)
+        counts = torch.zeros(capacity + 1, dtype=torch.int32,
+                             device=labels.device)
     bbox = torch.stack([props["bbox_min_row"], props["bbox_min_col"],
                         props["bbox_max_row"], props["bbox_max_col"]], dim=1)
     seg_label = torch.arange(1, capacity + 1, dtype=torch.int32,
@@ -257,24 +265,32 @@ def _frame_cellinfo_impl(labels, capacity, max_neighbors, min_cell_area,
 def frame_cellinfo(labels: torch.Tensor, capacity: int,
                    max_neighbors: int = 64, min_cell_area: float = 0.1,
                    max_cell_area: float = 10.0,
+                   intensity: Optional[torch.Tensor] = None,
+                   with_neighbors: bool = True,
                    neighbor_compact_k: Optional[int] = None) -> CellTable:
     """One frame's cell table: region properties, validity by area within
     (min_cell_area, max_cell_area) x the mean area, and the neighbour graph of
-    valid cells. ``neighbor_compact_k=None`` is the exact one-vote-per-pixel
+    valid cells. ``intensity`` (an (H, W) image) goes to ``regionprops``.
+    ``with_neighbors=False`` skips the adjacency and zero-fills
+    ``neighbors`` / ``n_neighbors`` (tracking reads positions and areas
+    only). ``neighbor_compact_k=None`` is the exact one-vote-per-pixel
     adjacency, the recompute path for frames whose compacted table
     overflowed."""
     return _frame_cellinfo_impl(labels, capacity, max_neighbors, min_cell_area,
-                                max_cell_area, neighbor_compact_k)[0]
+                                max_cell_area, intensity, with_neighbors,
+                                neighbor_compact_k)[0]
 
 
 def frame_cellinfo_checked(labels: torch.Tensor, capacity: int,
                            max_neighbors: int = 64,
                            min_cell_area: float = 0.1,
                            max_cell_area: float = 10.0,
+                           intensity: Optional[torch.Tensor] = None,
                            neighbor_compact_k: int = 192
                            ) -> Tuple[CellTable, torch.Tensor]:
     """:func:`frame_cellinfo` with the compacted adjacency AND its overflow
     flag: (table, overflow). Recompute a flagged frame with
     ``frame_cellinfo(..., neighbor_compact_k=None)``."""
     return _frame_cellinfo_impl(labels, capacity, max_neighbors, min_cell_area,
-                                max_cell_area, neighbor_compact_k)
+                                max_cell_area, intensity, True,
+                                neighbor_compact_k)

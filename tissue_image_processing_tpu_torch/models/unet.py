@@ -28,6 +28,8 @@ float32 and rounds to bfloat16 once per block. Here:
 
 With ``dtype=torch.float32`` the convs run in full float32 on both; on the
 card TF32 is switched off around them, so card and CPU can be compared.
+``dtype=torch.float64`` (with ``model.double()``) computes in float64
+throughout: a reference where two float32 runs sum in different orders.
 
 The JAX module's knobs: ``up_kind="convt"`` (the reference's stride-2
 transposed conv), ``"subpixel"`` (the same map as one 2 x 2 conv to 4f
@@ -82,10 +84,8 @@ def _conv(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
           padding=None) -> torch.Tensor:
     """SAME 3x3 / 1x1 conv (or ``padding`` (rows, columns)), or the stride-2
     transposed conv, with operands in ``dtype`` and a float32 result
-    including the bias (module docstring)."""
-    if dtype == torch.float32:
-        x, w = x.to(torch.float32), weight
-    elif x.device.type == "cuda":
+    including the bias (module docstring); float64 stays float64."""
+    if dtype in (torch.float32, torch.float64) or x.device.type == "cuda":
         x, w = x.to(dtype), weight.to(dtype)
     else:
         x, w = x.to(dtype).to(torch.float32), weight.to(dtype).to(torch.float32)
@@ -101,7 +101,8 @@ def _conv(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
             y = F.conv2d(x, w, padding=(weight.shape[-1] // 2 if padding is None
                                         else padding))
     # y is this call's own tensor (or a view of it): add the bias in place
-    return y.to(torch.float32).add_(bias[None, :, None, None])
+    out = torch.float64 if dtype == torch.float64 else torch.float32
+    return y.to(out).add_(bias[None, :, None, None])
 
 
 def _auto_row_split(B: int, H: int) -> int:

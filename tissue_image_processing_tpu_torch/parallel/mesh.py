@@ -1,0 +1,426 @@
+"""Device mesh, collectives and the tensor-parallel U-Net training step.
+
+Port of ``tissue_image_processing_tpu/parallel/mesh.py``. The JAX package is
+single-controller: one Python process runs ``shard_map`` over an array of
+devices. The port keeps that design with ``torch.device``s instead of
+``torch.distributed`` process groups: NCCL cannot place two ranks on one
+card, and one process can drive every card of a host. So
+
+- a :class:`Mesh` is a numpy object array of ``torch.device``s with axis
+  names. ``devices=None`` means the visible CUDA cards; a virtual mesh
+  repeats one device (``[torch.device("cuda")] * 4`` on one card,
+  ``[torch.device("cpu")] * 8`` in the tests);
+- a sharded value is a list of per-shard tensors, one per position along a
+  mesh axis, each on its position's device;
+- the collectives (:func:`ppermute`, :func:`all_gather`, :func:`psum`) are
+  explicit ``.to(device)`` copies (non-blocking onto a card) plus
+  ``torch.cat`` or a sum, made once per distinct device. None reads a value
+  back to the host;
+- shard bodies run in a Python loop over the mesh positions. On one card
+  they queue on its stream; on several cards each card's work queues on its
+  own stream as long as the shard body makes no host synchronisation.
+
+Axes as in the JAX package: ``data`` (frames / batch) and ``model`` (the
+U-Net's conv output channels). :func:`unet_train_step_sharded` is data
+parallel over ``data`` and tensor parallel over ``model``: each conv's output
+channels are computed on their ``model`` shard and the activations gathered
+over ``model`` before the next conv, BatchNorm statistics are taken over the
+global batch (reduced over ``data``, as GSPMD's global program computes
+them) and autograd sums each parameter's gradient over ``data`` through the
+copies.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from tissue_image_processing_tpu_torch._device import resolve_device
+from tissue_image_processing_tpu_torch.models.train import TrainState
+from tissue_image_processing_tpu_torch.models.unet import (
+    _conv, _full_float32_convs)
+
+__all__ = ["Mesh", "make_mesh", "shard_batch", "shard_params",
+           "unet_train_step_sharded", "ShardedParams", "ppermute",
+           "all_gather", "psum", "axis_index"]
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """A named grid of devices: ``devices`` is a numpy object array of
+    ``torch.device`` with one axis per name in ``axis_names``."""
+
+    devices: np.ndarray
+    axis_names: Tuple[str, ...]
+
+    @property
+    def shape(self) -> "collections.OrderedDict[str, int]":
+        return collections.OrderedDict(zip(self.axis_names, self.devices.shape))
+
+    @property
+    def lead(self) -> torch.device:
+        """The device of the first position, where replicated results land."""
+        return self.devices.flat[0]
+
+
+def _mesh_devices(n_devices: Optional[int], devices, what: str
+                  ) -> List[torch.device]:
+    """The first ``n_devices`` of ``devices`` (None: the visible CUDA
+    cards; raises without one, as every entry point of the port does)."""
+    if devices is None:
+        resolve_device(None)
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    # a tensor's device always carries its index: "cuda" becomes the
+    # current card's "cuda:i", so a mesh device keys a shard's device
+    devices = [torch.device("cuda", torch.cuda.current_device())
+               if torch.device(d) == torch.device("cuda") else torch.device(d)
+               for d in devices]
+    n = n_devices or len(devices)
+    if n > len(devices):
+        raise ValueError(
+            f"requested a {n}-device {what} but only {len(devices)} device(s) "
+            f"are given or visible; for a virtual mesh pass devices= with a "
+            f"device repeated, e.g. devices=[torch.device('cuda')] * {n}")
+    return devices[:n]
+
+
+def _object_array(items: Sequence, shape) -> np.ndarray:
+    """``items`` (devices or tensors) as a numpy object array of ``shape``,
+    each stored as it is (numpy would unpack a list of tensors)."""
+    arr = np.empty(len(items), dtype=object)
+    for i, item in enumerate(items):
+        arr[i] = item
+    return arr.reshape(shape)
+
+
+def make_mesh(n_devices: Optional[int] = None,
+              axis_names: Tuple[str, str] = ("data", "model"),
+              devices=None) -> Mesh:
+    """A (data x model) mesh over the first ``n_devices`` of ``devices``
+    (None: the visible CUDA cards). The model axis gets the largest of 4
+    and 2 that divides the count (else 1); the rest is data."""
+    devs = _mesh_devices(n_devices, devices, "mesh")
+    n = len(devs)
+    model = next((c for c in (4, 2) if n % c == 0), 1)
+    return Mesh(_object_array(devs, (n // model, model)), tuple(axis_names))
+
+
+def _move(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """``t`` on ``device``: asynchronous onto a card (stream-ordered), a
+    plain copy onto the CPU, which must not read a copy still in flight."""
+    return t.to(device, non_blocking=device.type == "cuda")
+
+
+def ppermute(shards: Sequence[torch.Tensor],
+             perm: Sequence[Tuple[int, int]]) -> List[torch.Tensor]:
+    """``out[dst] = shards[src]`` for each (src, dst) of ``perm``, on the
+    destination's device; a position that receives nothing gets zeros
+    (``jax.lax.ppermute``)."""
+    out: List[Optional[torch.Tensor]] = [None] * len(shards)
+    for src, dst in perm:
+        out[dst] = _move(shards[src], shards[dst].device)
+    return [torch.zeros_like(s) if o is None else o
+            for s, o in zip(shards, out)]
+
+
+def _per_device(shards: Sequence[torch.Tensor], fn) -> List[torch.Tensor]:
+    """``fn(device)`` for the device of each shard, computed once per
+    distinct device (a virtual mesh shares one result)."""
+    done: Dict[torch.device, torch.Tensor] = {}
+    for s in shards:
+        if s.device not in done:
+            done[s.device] = fn(s.device)
+    return [done[s.device] for s in shards]
+
+
+def all_gather(shards: Sequence[torch.Tensor], axis: int = 0,
+               tiled: bool = True) -> List[torch.Tensor]:
+    """Every shard, joined along ``axis`` (``tiled``) or stacked on a new
+    leading axis, on each shard's device (``jax.lax.all_gather``)."""
+    join = torch.cat if tiled else torch.stack
+    return _per_device(shards, lambda dev: join(
+        [_move(s, dev) for s in shards], axis if tiled else 0))
+
+
+def psum(shards: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """The sum of the shards in position order, on each shard's device
+    (``jax.lax.psum``)."""
+    def total(dev):
+        out = _move(shards[0], dev)
+        for s in shards[1:]:
+            out = out + _move(s, dev)
+        return out
+    return _per_device(shards, total)
+
+
+def axis_index(mesh: Mesh, axis_name: str, position: Tuple[int, ...]) -> int:
+    """The coordinate along ``axis_name`` of the mesh ``position`` (an index
+    tuple of ``mesh.devices``), ``jax.lax.axis_index`` of a shard body."""
+    return position[mesh.axis_names.index(axis_name)]
+
+
+def shard_batch(mesh: Mesh, batch) -> List[torch.Tensor]:
+    """A (B, ...) batch (numpy or tensor) split along B over the ``data``
+    axis: one slice per data position, on that row's first device."""
+    t = torch.as_tensor(batch)
+    rows = mesh.devices.shape[mesh.axis_names.index("data")]
+    if t.shape[0] % rows:
+        raise ValueError(f"batch {t.shape[0]} does not divide over the mesh's "
+                         f"data axis {rows}")
+    return [_move(s, mesh.devices[d, 0]) for d, s in
+            enumerate(torch.chunk(t, rows, 0))]
+
+
+def _param_spec(layer: type, leaf: str, shape) -> Optional[int]:
+    """The dim of tensor ``leaf`` of a ``layer`` holding its output channels,
+    which the JAX package shards over ``model`` (the last axis of an HWIO
+    kernel, and every 1-D bias, scale, shift and BatchNorm statistic), or
+    None (replicated). By layer type: output channels are dim 0 of a
+    ``Conv2d`` weight but dim 1 of a ``ConvTranspose2d`` weight."""
+    if leaf == "weight" and issubclass(layer, nn.ConvTranspose2d):
+        return 1
+    if leaf == "weight" and issubclass(layer, nn.Conv2d):
+        return 0
+    return 0 if len(shape) == 1 else None
+
+
+@dataclasses.dataclass
+class ShardedParams:
+    """A U-Net's ``state_dict`` laid out over a mesh: ``specs[key]`` is the
+    dim split over ``model`` (None: replicated) and ``shards[key]`` the
+    pieces, one per model position (one when replicated), each on the
+    first data row's device of its position. Parameters are leaves that
+    require grad; :meth:`parameters` feeds an optimizer."""
+
+    mesh: Mesh
+    specs: Dict[str, Optional[int]]
+    shards: Dict[str, List[torch.Tensor]]
+
+    def parameters(self) -> List[torch.Tensor]:
+        return [s for pieces in self.shards.values() for s in pieces
+                if s.requires_grad]
+
+    def state_dict(self) -> Dict[str, torch.Tensor]:
+        """The whole tensors, joined on the mesh's lead device."""
+        lead = self.mesh.lead
+        return {k: (_move(p[0], lead) if self.specs[k] is None else
+                    torch.cat([_move(s, lead) for s in p], self.specs[k])
+                    ).detach()
+                for k, p in self.shards.items()}
+
+
+def _split(t: torch.Tensor, dim: Optional[int], mesh: Mesh,
+           grad: bool) -> List[torch.Tensor]:
+    """Own copies of ``t``'s pieces along ``dim`` (the whole of it when
+    None), piece m on the first data row's device of model position m."""
+    devs = mesh.devices[0]
+    pieces = [t] if dim is None else torch.chunk(t, len(devs), dim)
+    return [_move(p.detach(), devs[m]).clone(
+        memory_format=torch.contiguous_format).requires_grad_(grad)
+        for m, p in enumerate(pieces)]
+
+
+def shard_params(mesh: Mesh, module_or_state):
+    """Lay a ``UNet`` out over ``mesh`` as a :class:`ShardedParams`: each
+    tensor's output-channel dim (:func:`_param_spec`, by the type of the
+    layer that owns it) is split over ``model`` when its size divides the
+    axis, else the tensor is replicated. Given a ``models.train.TrainState``,
+    returns a new one whose ``model`` is the :class:`ShardedParams` and
+    whose optimizer (same class and hyperparameters) holds the parameters'
+    shards, each Adam moment split as its parameter."""
+    if isinstance(module_or_state, TrainState):
+        return _shard_train_state(mesh, module_or_state)
+    module, model = module_or_state, mesh.shape["model"]
+    params = {n for n, _ in module.named_parameters()}
+    specs, shards = {}, {}
+    for k, t in module.state_dict().items():
+        owner, _, leaf = k.rpartition(".")
+        dim = _param_spec(type(module.get_submodule(owner)), leaf,
+                          tuple(t.shape))
+        if dim is not None and t.shape[dim] % model:
+            dim = None
+        specs[k] = dim
+        shards[k] = _split(t, dim, mesh, k in params)
+    return ShardedParams(mesh, specs, shards)
+
+
+def _shard_train_state(mesh: Mesh, state: TrainState) -> TrainState:
+    sharded = shard_params(mesh, state.model)
+    old = state.optimizer
+    tx = type(old)(sharded.parameters(), **old.defaults)
+    named = dict(state.model.named_parameters())
+    for k, pieces in sharded.shards.items():
+        src = old.state.get(named[k]) if k in named else None
+        if not src:
+            continue
+        split = {name: ([v.clone() for _ in pieces] if v.dim() == 0 else
+                        _split(v, sharded.specs[k], mesh, False))
+                 for name, v in src.items()}
+        for m, p in enumerate(pieces):
+            tx.state[p] = {name: v[m] for name, v in split.items()}
+    return TrainState(sharded, tx, state.step)
+
+
+def _pieces(params: ShardedParams, key: str, d: int) -> List[torch.Tensor]:
+    """The pieces of ``key`` for data row ``d``: each moved (through
+    autograd) to row ``d``'s device of its model position."""
+    return [_move(p, params.mesh.devices[d, m])
+            for m, p in enumerate(params.shards[key])]
+
+
+def _gathered(pieces: Sequence[torch.Tensor], devs) -> List[torch.Tensor]:
+    """A channel-split activation (NCHW pieces) joined on every device of
+    ``devs`` (one data row's model positions); a single piece is the whole
+    activation already."""
+    if len(pieces) == 1:
+        return [_move(pieces[0], dev) for dev in devs]
+    return all_gather(pieces, axis=1)
+
+
+class _TensorParallelUNet:
+    """The training-mode forward of a ``UNet`` over a (data x model) mesh:
+    ``acts[d][m]`` is data row ``d``'s activation on its model position
+    ``m`` (whole when gathered, a channel piece when split)."""
+
+    def __init__(self, model: nn.Module, params: ShardedParams):
+        if model.up_kind != "convt":
+            raise ValueError("the sharded train step takes up_kind='convt'")
+        self.model, self.params = model, params
+        self.mesh = params.mesh
+        self.rows = self.mesh.devices.shape[0]
+
+    def conv(self, full, key: str, transpose: bool = False):
+        """``key``'s conv on each row's whole input: output channel piece m
+        on model position m (one piece when replicated)."""
+        out = []
+        for d in range(self.rows):
+            ws = _pieces(self.params, key + ".weight", d)
+            bs = _pieces(self.params, key + ".bias", d)
+            out.append([_conv(full[d][m], w, b, self.model.dtype,
+                              transpose=transpose)
+                        for m, (w, b) in enumerate(zip(ws, bs))])
+        return out
+
+    def batch_norm(self, ys, key: str):
+        """Training-mode BatchNorm of channel pieces over the GLOBAL batch:
+        per-piece sums reduced over ``data``; the running statistics move
+        as ``models/unet.py:_batch_norm_train`` moves them."""
+        bn = self.model.get_submodule(key)
+        n_pieces = len(ys[0])
+        count = sum(y[0].numel() // y[0].shape[1] for y in ys)
+        out = [[None] * n_pieces for _ in ys]
+        for m in range(n_pieces):
+            col = [ys[d][m] for d in range(self.rows)]
+            s1 = psum([y.sum(dim=(0, 2, 3)) for y in col])
+            s2 = psum([(y * y).sum(dim=(0, 2, 3)) for y in col])
+            for d, y in enumerate(col):
+                mean = s1[d] / count
+                var = (s2[d] / count - mean * mean).clamp_min(0.0)
+                if d == 0:
+                    self._update_running(key, m, mean, var, bn.momentum)
+                w = _pieces(self.params, key + ".weight", d)[m]
+                b = _pieces(self.params, key + ".bias", d)[m]
+                scale = w * torch.rsqrt(var + bn.eps)
+                out[d][m] = ((y - mean[None, :, None, None])
+                             * scale[None, :, None, None]
+                             + b[None, :, None, None])
+        return out
+
+    def _update_running(self, key, m, mean, var, momentum):
+        with torch.no_grad():
+            for name, v in (("running_mean", mean), ("running_var", var)):
+                buf = self.params.shards[f"{key}.{name}"][m]
+                buf.mul_(1.0 - momentum).add_(momentum * _move(v, buf.device))
+            if m == 0:
+                self.params.shards[f"{key}.num_batches_tracked"][0].add_(1)
+
+    def pointwise(self, pieces, fn):
+        return [[fn(p) for p in row] for row in pieces]
+
+    def gather(self, pieces):
+        return [_gathered(row, self.mesh.devices[d])
+                for d, row in enumerate(pieces)]
+
+    def double_conv(self, full, k: int):
+        block = self.model.blocks[k]
+        for i in range(2):
+            y = self.pointwise(self.conv(full, f"blocks.{k}.conv{i}"),
+                               torch.relu)
+            if block.norm == "bn":
+                y = self.batch_norm(y, f"blocks.{k}.bn{i}")
+            elif block.norm == "shift":
+                key = f"blocks.{k}.shift{i}"
+                y = [[p + _pieces(self.params, key, d)[m][None, :, None, None]
+                      for m, p in enumerate(row)] for d, row in enumerate(y)]
+            y = self.pointwise(y, lambda t: t.to(self.model.dtype))
+            if i == 0:
+                full = self.gather(y)
+        return y
+
+    def forward(self, xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """(b, X, Y, C) inputs by data row -> (b, X, Y, classes) softmax
+        outputs by data row, on each row's first device."""
+        model = self.model
+        drop = lambda t: F.dropout(t, model.dropout_rate, True)  # noqa: E731
+        full = self.gather([[x.to(model.dtype).permute(0, 3, 1, 2)]
+                            for x in xs])
+        skips = []
+        for k in range(model.depth):
+            y = self.double_conv(full, k)
+            skips.append(y)
+            full = self.gather(self.pointwise(
+                y, lambda t: drop(F.max_pool2d(t, 2))))
+        y = self.double_conv(full, model.depth)
+        for j in range(model.depth):
+            up = self.pointwise(self.conv(self.gather(y), f"ups.{j}",
+                                          transpose=True),
+                                lambda t: drop(t.to(model.dtype)))
+            skip = self.pointwise(skips.pop(), drop)
+            ups, sks = self.gather(up), self.gather(skip)
+            full = [[torch.cat([u, s], 1) for u, s in zip(ur, sr)]
+                    for ur, sr in zip(ups, sks)]
+            y = self.double_conv(full, model.depth + 1 + j)
+        logits = self.gather(self.conv(self.gather(y), "head"))
+        return [torch.softmax(row[0], dim=1).permute(0, 2, 3, 1)
+                for row in logits]
+
+
+def unet_train_step_sharded(mesh: Mesh, model: nn.Module, tx):
+    """A U-Net training step over ``mesh``: data parallel over ``data``,
+    tensor parallel over ``model``. ``model`` is the ``UNet`` whose
+    architecture (depth, dtype, norm, dropout rate) the step runs; ``tx``
+    the optimizer over the :class:`ShardedParams`' parameters (as
+    :func:`shard_params` of a ``TrainState`` builds it).
+
+    ``step(state, batch_x, batch_y) -> (state, loss)``: ``state.model`` is
+    the :class:`ShardedParams`, ``batch_x`` a (B, X, Y, C) batch or its
+    :func:`shard_batch` slices, ``batch_y`` the (B, X, Y, 2) one-hot
+    targets; loss = mean categorical cross-entropy with eps 1e-7 inside
+    the log (on the lead device). Dropout draws from PyTorch's generator."""
+    def step(state, batch_x, batch_y):
+        xs = (batch_x if isinstance(batch_x, (list, tuple))
+              else shard_batch(mesh, torch.as_tensor(batch_x,
+                                                     dtype=torch.float32)))
+        ys = shard_batch(mesh, torch.as_tensor(batch_y, dtype=torch.float32))
+        xs = [x.to(torch.float32) for x in xs]
+        net = _TensorParallelUNet(model, state.model)
+        tx.zero_grad(set_to_none=True)
+        outs = net.forward(xs)
+        n = sum(y.numel() // y.shape[-1] for y in ys)
+        ce = [-(y.to(o.device) * torch.log(o + 1e-7)).sum() for o, y in
+              zip(outs, ys)]
+        loss = psum(ce)[0] / n
+        with _full_float32_convs(mesh.lead):
+            loss.backward()
+        tx.step()
+        state.step += 1
+        return state, loss.detach()
+
+    return step
