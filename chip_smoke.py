@@ -52,7 +52,8 @@ Phases (any failure exits non-zero; no phase catches and continues):
    frame 0 of the batch form), ``connected_components`` of its cells
    (4-connected through the union-find scan, 8-connected through the plain
    route), ``contact_length_matrix`` (both forms), ``segment_percentile``,
-   ``band_pass_filter`` and ``local_drift_field``;
+   ``band_pass_filter`` (its blur in the walk form) and
+   ``local_drift_field``;
 4. hold the fused projection against the unfused one on the card (the JAX
    tolerance class: >= 99% of pixels within one plane, median relative
    error < 0.02 where the z-maps agree), and ``unet_postprocess_batch`` on
@@ -106,10 +107,14 @@ Phases (any failure exits non-zero; no phase catches and continues):
    sample in 1024 tiles (9, 5 ragged), each tile equal to that tile
    projected alone; ``movie_pipeline_chunked`` fed from a ``MovieStore`` of
    the headline movie equal to ``movie_pipeline`` on the in-memory array;
-   ``blur3d`` at the driver's three shapes on the path's own inputs, bit
-   for bit against its plain version and timed by graph replay beside
-   ``conv3d``, and on ragged tiles. The TIFF legs run where PIL is
-   installed; the phase prints which optional packages it found;
+   the ``project`` stage of one 4-frame batch traced with the profiler,
+   the blurs in the generic and in the walk form (the ten costliest device
+   operations, the device-busy share, the blurs' share); the production
+   envelope: ``movie_pipeline`` on T=2 of (2, 40, 2000, 2000) uint16
+   frames cut from the tiled frames (the unfused route: no fused-kernel
+   launch; ``blur3d``'s launches by shape and form; frames/s). The TIFF
+   legs run where PIL is installed; the phase prints which optional
+   packages it found;
 8. "tissue": the ``Tissue`` session (``check_tissue``). The headline raw
    movie's ``movie_pipeline`` output populates a session on the card as
    the JAX package's ``cmd_pipeline`` does (one stacked read-back of the
@@ -165,7 +170,16 @@ Phases (any failure exits non-zero; no phase catches and continues):
     ``launches_cli`` / ``launches_cli_unet_int8``: the "cli" phase's two
     pipeline runs; ``launches_parallel``: the "parallel" phase's runs by
     path; the blur at the space shards' shapes as six rows
-    ``blur3d_shard_*``), then the card's line, and as the last line
+    ``blur3d_shard_*``). Before it, ``blur3d`` wherever the unfused
+    projection runs it, on the path's own inputs: the driver's three
+    shapes, the frame-sharded pipelines' (30, 1024, 1024), the band-pass
+    filter's (1, 1024, 1024), the envelope's (40, 2000, 2000), the space
+    shards' and ragged tiles of ``large_image_projection``: the form it
+    picks and, where that is the walk form, the generic tile form, each bit
+    for bit against the plain version and over two runs, the two timed by
+    graph replay in turns (generic, walk, walk, generic; the walk form
+    faster), beside ``conv3d``; each such row gives its ``form`` and
+    ``generic_ms``. Then the card's line, and as the last line
     ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or the JAX package.
@@ -277,25 +291,32 @@ def kernel_split(fn, reps: int) -> str:
     return ", ".join(f"{k} {us:.1f}" for k, us in sorted(rows, key=lambda r: -r[1]))
 
 
-def device_profile(fn):
+def device_profile(fn, rows: bool = False):
     """(device operations launched, their summed device ms) of one call of
     ``fn()`` after a warm one, by the profiler's CUDA trace: against the
-    call's wall time it says how much of it the card was busy."""
+    call's wall time it says how much of it the card was busy. With
+    ``rows``, also the traced call's host-clock ms (profiler on) and its
+    device operations as (name, count, device ms), costliest first."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
-            if (getattr(e, "device_time_total", None)
-                or getattr(e, "cuda_time_total", 0)) > 0]
-    assert rows, "the profiler recorded no device time"
-    return (sum(e.count for e in rows),
-            sum(getattr(e, "device_time_total", None)
-                or getattr(e, "cuda_time_total", 0) for e in rows) / 1e3)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    def device_ms(e):  # the attribute's name changed between PyTorch versions
+        return (getattr(e, "device_time_total", None)
+                or getattr(e, "cuda_time_total", 0)) / 1e3
+
+    ops = sorted(((e.key, e.count, device_ms(e)) for e in prof.key_averages()
+                  if device_ms(e) > 0), key=lambda r: -r[2])
+    assert ops, "the profiler recorded no device time"
+    summary = (sum(n for _, n, _ in ops), sum(ms for _, _, ms in ops))
+    return (*summary, wall_ms, ops) if rows else summary
 
 
 def bound(nbytes: float, nops: float):
@@ -944,14 +965,20 @@ def projection_breakdown(stack, card: str):
 
 def check_fused_vs_unfused(stack):
     """Phase 4: the fused projection against the unfused one on the card,
-    to the JAX package's tolerance class (tests/test_projection_fused.py)."""
+    to the JAX package's tolerance class (tests/test_projection_fused.py).
+    Returns the unfused projection's walk-form blur inputs (its pre-blur
+    and z-mask blur, as the frame-sharded pipelines run them) by (Z, Y, X,
+    tz, ty, tx)."""
     from tissue_image_processing_tpu_torch.projection.fused import (
         fused_projection)
     from tissue_image_processing_tpu_torch.projection.surface import (
         time_point_surface_projection)
 
     pf, zf = fused_projection(stack, airyscan=False)
-    pr, zr = time_point_surface_projection(stack, airyscan=False)
+    Z, Y, X = stack.shape[1:]
+    walk = {(Z, Y, X, 5, 9, 9), (Z, Y, X, 9, 17, 17)}
+    with capture_blur_inputs(walk) as captured:
+        pr, zr = time_point_surface_projection(stack, airyscan=False)
     dz = (zf - zr).abs()
     near = float((dz <= 1).float().mean())
     same = dz == 0
@@ -962,6 +989,7 @@ def check_fused_vs_unfused(stack):
     print(f"fused vs unfused {tuple(stack.shape)}: |dz| <= 1 on {near:.6f}, "
           f"dz == 0 on {float(same.float().mean()):.6f}, median relative "
           f"error {med:.3g}")
+    return captured
 
 
 PRE_BLUR = (2, 1024, 1024, 1, 25, 25)    # the watershed pre-blur, a flood's batch
@@ -1004,6 +1032,8 @@ def check_pipeline(card: str, movie):
     floods = -(-T // kw["batch"])
     by_shape = blur_launches({PRE_BLUR: floods,
                               SCORE_BLUR: T if Z > 1 else 0})
+    forms = {k: v for k, v in tipt._device.BLUR_FORMS.items() if v}
+    assert forms == {"tile25": floods, **({"z_only": T} if Z > 1 else {})}, forms
     expected = WATERSHED_KERNELS + (PROJECTION_KERNELS if Z > 1 else ())
     missing = [k for k in expected if launches[k] == 0]
     assert not missing, f"kernels not launched on the main path: {missing}"
@@ -1711,10 +1741,11 @@ def check_ported_functions(frames, card: str):
     components of its cells (the watershed lines inverted) by the union-find
     scan (4 launches) and, 8-connected, by the plain route on the card, both
     equal to the CPU; the contact matrices (exact and run-length forms) and
-    per-cell percentiles exactly; the band-pass filter (one blur launch and
-    the band matrix) within the CPU test's 1e-6 on [0, 1) values; the local
-    drift field (16 windows of 700^2) within 1e-4 px. Returns each kernel's
-    launches by function."""
+    per-cell percentiles exactly; the band-pass filter (one blur launch,
+    in the walk form, and the band matrix) within the CPU test's 1e-6 on
+    [0, 1) values; the local drift field (16 windows of 700^2) within 1e-4
+    px. Returns each kernel's launches by function and the band-pass
+    filter's blur input (x, kz, ky, kx)."""
     import torch
 
     import tissue_image_processing_tpu_torch as tipt
@@ -1784,9 +1815,11 @@ def check_ported_functions(frames, card: str):
 
     x = frame / (frame.max() + 1.0)  # [0, 1), the CPU test's value range
     tipt.reset_launches()
-    got = band_pass_filter(x, 1.0, 4.0)
+    with capture_blur_inputs({BAND_PASS_BLUR}) as band_input:
+        got = band_pass_filter(x, 1.0, 4.0)
     by_caller["band_pass_filter"] = launched({"blur3d": 1})
     blur_launches({BAND_PASS_BLUR: 1})
+    assert dict(tipt._device.BLUR_FORMS) == {"walk": 1}, tipt._device.BLUR_FORMS
     err = max_abs_err(got.cpu(), band_pass_filter(x.cpu(), 1.0, 4.0))
     assert err <= 1e-6, f"band_pass_filter card vs CPU {err}"
     ms = cuda_ms(lambda: band_pass_filter(x, 1.0, 4.0), 5)
@@ -1807,7 +1840,7 @@ def check_ported_functions(frames, card: str):
     for fn, counts in by_caller.items():
         for name, n in counts.items():
             out.setdefault(name, {})[fn] = n
-    return out
+    return out, band_input[BAND_PASS_BLUR]
 
 
 # the unfused projection's three blurs of a frame at the driver's 2048^2
@@ -1848,73 +1881,213 @@ def capture_blur_inputs(shapes):
     assert set(seen) == set(shapes), f"captured {sorted(seen)}"
 
 
-def check_driver_blur(name: str, x, kz, ky, kx, card: str) -> dict:
-    """``blur3d`` at one of the driver's shapes on the path's own input:
-    bit for bit against its plain version, two runs equal; device time by
-    graph replay and by events, the plain version's time and a library
-    yardstick (``conv3d`` with the outer product of the taps over the
-    replicate-padded volume, cuDNN TF32 off)."""
+@contextlib.contextmanager
+def forced_blur_form(form):
+    """While open, every ``blur3d`` call of ``gaussian_blur`` that would
+    take the walk form runs in ``form`` instead (None: as picked)."""
+    from tissue_image_processing_tpu_torch.ops import blur_cuda, filters
+
+    orig = filters.blur3d
+
+    def forced(x, kz, ky, kx):
+        walk = blur_cuda.blur3d_form(tuple(x.shape), (len(kz), len(ky),
+                                                      len(kx))) == "walk"
+        return orig(x, kz, ky, kx, form=form if walk else None)
+
+    filters.blur3d = forced
+    try:
+        yield
+    finally:
+        filters.blur3d = orig
+
+
+def check_driver_blur(name: str, x, kz, ky, kx, card: str,
+                      library: bool = True) -> dict:
+    """``blur3d`` at one of the unfused projection's shapes on the path's
+    own input: the form ``blur3d_form`` picks and, where that is the walk
+    form, the generic tile form too, each bit for bit against the plain
+    version and equal over two runs; device time by graph replay, the two
+    forms in turns (generic, walk, walk, generic; the walk form faster than
+    the generic one in both pairs), the picked form's by events, the plain
+    version's time and (``library``) a library yardstick (``conv3d`` with
+    the outer product of the taps over the replicate-padded volume, cuDNN
+    TF32 off)."""
     import torch
     import torch.nn.functional as F
 
     from tissue_image_processing_tpu_torch.ops import blur_cuda
     from tissue_image_processing_tpu_torch.utils.kernel_variants import graph_ms
 
-    got = blur_cuda.blur3d(x, kz, ky, kx)
+    shape = (*x.shape, len(kz), len(ky), len(kx))
+    form = blur_cuda.blur3d_form(shape[:3], shape[3:])
+    forms = (form, "generic") if form == "walk" else (form,)
     want = blur_cuda.blur3d_plain(x, kz, ky, kx)
-    torch.testing.assert_close(got, want, rtol=0, atol=0,
-                               msg=f"blur3d ({name}) disagrees with plain")
-    assert torch.equal(blur_cuda.blur3d(x, kz, ky, kx), got), \
-        f"blur3d ({name}): two runs differ"
-    k = [torch.tensor(t, dtype=torch.float32, device=x.device) for t in (kz, ky, kx)]
-    k3 = (k[0][:, None, None] * k[1][None, :, None] * k[2][None, None, :])[None, None]
-    rz, ry, rx = (len(t) // 2 for t in (kz, ky, kx))
+    call = {f: (lambda f=f: blur_cuda.blur3d(x, kz, ky, kx, form=f))
+            for f in forms}
+    for f in forms:
+        got = call[f]()
+        torch.testing.assert_close(got, want, rtol=0, atol=0,
+                                   msg=f"blur3d ({name}, {f}) disagrees with plain")
+        assert torch.equal(call[f](), got), f"blur3d ({name}, {f}): two runs differ"
+    got = call[form]()
+    lib_ms = None
+    if library:
+        k = [torch.tensor(t, dtype=torch.float32, device=x.device)
+             for t in (kz, ky, kx)]
+        k3 = (k[0][:, None, None] * k[1][None, :, None]
+              * k[2][None, None, :])[None, None]
+        rz, ry, rx = (len(t) // 2 for t in (kz, ky, kx))
 
-    def library():
-        xp = F.pad(x[None, None], (rx, rx, ry, ry, rz, rz), mode="replicate")
-        return F.conv3d(xp, k3)[0, 0]
+        def conv():
+            xp = F.pad(x[None, None], (rx, rx, ry, ry, rz, rz), mode="replicate")
+            return F.conv3d(xp, k3)[0, 0]
 
-    prev_tf32 = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    scale = float(want.abs().max())
-    torch.testing.assert_close(library(), want, rtol=1e-5, atol=1e-5 * scale)
-    lib_ms = cuda_ms(library, 1)  # ~1 s a call for the 9 x 17 x 17 taps
-    torch.backends.cudnn.allow_tf32 = prev_tf32
+        prev_tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        scale = float(want.abs().max())
+        torch.testing.assert_close(conv(), want, rtol=1e-5, atol=1e-5 * scale)
+        lib_ms = cuda_ms(conv, 1)  # ~1 s a call for the 9 x 17 x 17 taps
+        torch.backends.cudnn.allow_tf32 = prev_tf32
+    if form == "walk":   # in turns: generic, walk, walk, generic
+        runs = [graph_ms(call[f]) for f in ("generic", "walk", "walk", "generic")]
+        generic_runs, walk_runs = runs[::3], runs[1:3]
+        assert max(walk_runs) < min(generic_runs), \
+            f"blur3d ({name}): walk {walk_runs} ms not faster than generic {generic_runs}"
+        device_ms, generic_ms = sum(walk_runs) / 2, sum(generic_runs) / 2
+    else:
+        walk_runs, generic_runs = [graph_ms(call[form])], None
+        device_ms, generic_ms = walk_runs[0], None
     nvox = x.numel()
-    ms = cuda_ms_spread(lambda: blur_cuda.blur3d(x, kz, ky, kx), 10)
-    row = dict(err=max_abs_err(got, want),
-               device_ms=graph_ms(lambda: blur_cuda.blur3d(x, kz, ky, kx)),
-               ms=ms[0], ms_min=ms[1], ms_max=ms[2],
+    ms = cuda_ms_spread(call[form], 10)
+    row = dict(err=max_abs_err(got, want), form=form, device_ms=device_ms,
+               device_ms_runs=walk_runs, generic_ms=generic_ms,
+               generic_ms_runs=generic_runs, ms=ms[0], ms_min=ms[1], ms_max=ms[2],
                plain_ms=cuda_ms(lambda: blur_cuda.blur3d_plain(x, kz, ky, kx), 3),
-               bound=bound(8 * nvox, 2 * (len(kz) + len(ky) + len(kx)) * nvox),
-               library_ms=lib_ms, shape=(*x.shape, len(kz), len(ky), len(kx)))
-    print(f"blur3d {name} {tuple(x.shape)} taps {row['shape'][3:]}: bit-exact "
-          f"(max_abs_err {row['err']:.3g}), two runs equal, device (graph "
-          f"replay) {row['device_ms']:.4f} ms, events {spread(ms)}, plain "
-          f"{row['plain_ms']:.4f} ms, conv3d {lib_ms:.4f} ms, bound "
-          f"{row['bound'][0]:.4f} ms ({row['bound'][1]}) on {card}")
+               bound=bound(8 * nvox, 2 * sum(shape[3:]) * nvox),
+               library_ms=lib_ms, shape=shape)
+    versus = (f", generic form {generic_ms:.4f} ms (turns: generic "
+              f"{generic_runs[0]:.4f}, {form} {walk_runs[0]:.4f} / "
+              f"{walk_runs[1]:.4f}, generic {generic_runs[1]:.4f}; both "
+              f"forms bit-exact)" if generic_ms else "")
+    print(f"blur3d {name} {tuple(x.shape)} taps {shape[3:]}: {form} form "
+          f"bit-exact (max_abs_err {row['err']:.3g}), two runs equal, device "
+          f"(graph replay) {device_ms:.4f} ms{versus}, events {spread(ms)}, "
+          f"plain {row['plain_ms']:.4f} ms, conv3d "
+          + (f"{lib_ms:.4f} ms" if lib_ms else "not timed")
+          + f", bound {row['bound'][0]:.4f} ms ({row['bound'][1]}) on {card}")
     return row
 
 
-def check_ragged_blurs():
-    """The tiled blur on ragged tiles of ``large_image_projection`` (952 x
-    552, and an odd 953 x 551 that takes the scalar loads) at the driver's
-    tap counts, bit for bit against the plain version."""
+def check_ragged_blurs(card: str) -> dict:
+    """The blur on ragged tiles of ``large_image_projection`` (952 x 552,
+    and an odd 953 x 551 that takes the scalar loads) at the driver's tap
+    counts: both forms bit for bit against the plain version, timed in
+    turns (``check_driver_blur`` without the library yardstick). Returns
+    {shape: (walk ms, generic ms)}."""
     import torch
 
-    from tissue_image_processing_tpu_torch.ops import blur_cuda
     from tissue_image_processing_tpu_torch.ops.filters import gaussian_kernel1d
 
     gen = torch.Generator(device="cuda").manual_seed(5)
+    out = {}
     for Y, X in ((952, 552), (953, 551)):
         x = torch.rand((30, Y, X), device="cuda", generator=gen) * 60000
         for sig in ((0.5, 1.0, 1.0), (1.0, 2.0, 2.0)):
             taps = [gaussian_kernel1d(s) for s in sig]
-            torch.testing.assert_close(
-                blur_cuda.blur3d(x, *taps), blur_cuda.blur3d_plain(x, *taps),
-                rtol=0, atol=0, msg=f"blur3d ragged {(Y, X)} sigma {sig}")
-            print(f"blur3d ragged (30, {Y}, {X}) taps "
-                  f"{tuple(len(t) for t in taps)}: bit-exact")
+            r = check_driver_blur(f"ragged {Y}x{X}", x, *taps, card,
+                                  library=False)
+            out[f"{r['shape'][:3]} taps {r['shape'][3:]}"] = (
+                r["device_ms"], r["generic_ms"])
+    return out
+
+
+ENVELOPE = (2, 40, 2000)   # README's production movie: T cut to 2, ~40 z, ~2000^2
+
+
+def trace_project_stage(card: str, batch, device: str = "cuda") -> dict:
+    """The projection driver's ``project`` stage traced on the card: the
+    profiler (``device_profile``) around ``project_movie_array`` on one
+    batch of the driver's frames (``batch``: (4, 2, Z, 2048, 2048) uint16,
+    its default batch of 4), with the unfused projection's blurs in the
+    generic tile form (before) and in the walk form (after): the ten
+    costliest device operations, the device-busy share of the call's wall
+    time and the blurs' share of the device time, by form. ``device``
+    exists for a dry run on the CPU."""
+    from tissue_image_processing_tpu_torch.projection import driver
+
+    out = {}
+    for label, form in (("generic", "generic"), ("walk", None)):
+        with forced_blur_form(form):
+            n_ops, busy, wall, ops = device_profile(
+                lambda: driver.project_movie_array(batch, device=device),
+                rows=True)
+        blur = sum(ms for name, _, ms in ops if "blur_" in name)
+        out[label] = dict(wall_ms=wall, busy_ms=busy, blur_ms=blur,
+                          top=[(name[:80], n, ms) for name, n, ms in ops[:10]])
+        print(f"files: project stage traced, blurs in the {label} form: "
+              f"project_movie_array on one batch {batch.shape}: wall "
+              f"{wall:.1f} ms (profiler on), device busy {busy:.1f} ms "
+              f"({busy / wall:.4f} of the wall), {n_ops} device operations; "
+              f"blurs {blur:.3f} ms ({blur / busy:.4f} of the device time) on "
+              f"{card}; the ten costliest: " + "; ".join(
+                  f"{name[:80]} x{n} {ms:.3f} ms" for name, n, ms in ops[:10]))
+    return out
+
+
+def check_envelope(card: str, big, device: str = "cuda",
+                   min_cells: int = 800) -> dict:
+    """The README's production envelope on the card: ``movie_pipeline`` on a
+    T=2 movie of (2, 40, 2000, 2000) uint16 frames cut from the driver's
+    tiled 2048^2 frames (``big``), planes 0-9 repeated to reach 40. No
+    fused kernel takes it (2000 % 64 != 0): no ``proj_score`` /
+    ``proj_project`` launch; ``blur3d``'s launches by shape (the pre-blur
+    and z-mask blur twice each, in the walk form, the score blur's z axis
+    twice, the watershed pre-blur once for the one flood batch) and by
+    form; frames/s. The walk form's inputs of frame 0 bit for bit in both
+    forms and timed (``check_driver_blur``). Returns their rows by name.
+    ``device``, ``ENVELOPE`` and ``min_cells`` exist for a dry run on the
+    CPU."""
+    import torch
+
+    import tissue_image_processing_tpu_torch as tipt
+    from tissue_image_processing_tpu_torch.core.pipeline import movie_pipeline
+
+    T, Z, S = ENVELOPE
+    env = np.ascontiguousarray(np.concatenate(
+        [big[:T, :, :, :S, :S], big[:T, :, :Z - big.shape[2], :S, :S]], axis=2))
+    kw = dict(batch=2, capacity=4096, block_size=101, std=3.0, device=device)
+    walk = {"pre_blur": (Z, S, S, 5, 9, 9), "mask_blur": (Z, S, S, 9, 17, 17)}
+    with capture_blur_inputs(set(walk.values())) as captured:
+        movie_pipeline(env, **kw)   # warm, and frame 0's blur inputs
+    tipt.reset_launches()
+    out, secs = synced_seconds(lambda: movie_pipeline(env, **kw),
+                               torch.device(device))
+    launches = {k: v for k, v in tipt.LAUNCHES.items() if v}
+    assert not any(launches.get(k) for k in PROJECTION_KERNELS), \
+        f"the envelope movie took the fused route: {launches}"
+    small = S // 4 if S >= 512 and S % 4 == 0 else S  # the score's decimation
+    by_shape = blur_launches({walk["pre_blur"]: T, walk["mask_blur"]: T,
+                              (Z, small, small, 5, 1, 1): T,
+                              (T, S, S, 1, 25, 25): -(-T // kw["batch"])})
+    forms = dict(tipt._device.BLUR_FORMS)
+    assert forms == {"walk": 2 * T, "z_only": T, "tile25": 1}, forms
+    labels = out["labels"].cpu().numpy()
+    cells = [int(np.unique(f).size - 1) for f in labels]
+    assert labels.shape == (T, S, S) and min(cells) > min_cells, (labels.shape,
+                                                                cells)
+    print(f"envelope: movie_pipeline {env.shape} uint16 (unfused route, no "
+          f"fused-kernel launch): {T / secs:.3f} frames/s ({secs:.3f} s) on "
+          f"{card}; cells/frame {cells}; launches {launches}; blur3d by form "
+          f"{forms}")
+    del env, out
+    rows = {}
+    for name, shape in walk.items():
+        x, kz, ky, kx = captured.pop(shape)
+        rows[f"envelope_{name}"] = dict(check_driver_blur(
+            f"envelope_{name}", x, kz, ky, kx, card),
+            launches=by_shape[f"{shape[:3]} taps {shape[3:]}"])
+        del x
+    return rows
 
 
 def check_files(card: str, movie):
@@ -1939,8 +2112,12 @@ def check_files(card: str, movie):
     5. ``movie_pipeline_chunked`` fed from a ``MovieStore`` of the headline
        movie (``.npy``, 4-frame chunks) equal to ``movie_pipeline`` on the
        in-memory array;
+    6. the ``project`` stage of one batch traced (``trace_project_stage``)
+       and the production envelope (``check_envelope``).
     The TIFF legs run where PIL is installed. Returns the captured blur
-    inputs by name and ``blur3d``'s launches by shape on the CLI run."""
+    inputs by name, ``blur3d``'s launches by shape on the CLI run (the
+    pre-blur and z-mask blur in the walk form) and the envelope's blur
+    rows."""
     import importlib.util
     import os
     import tempfile
@@ -2001,6 +2178,8 @@ def check_files(card: str, movie):
         secs = time.perf_counter() - t0
         launches = launched({"blur3d": 3 * T})
         by_shape = blur_launches({s: T for s in blurs.values()})
+        forms = dict(tipt._device.BLUR_FORMS)
+        assert forms == {"walk": 2 * T, "z_only": T}, forms
         stages = metrics.summary()
         what = ("tip-project (CLI): .npy store -> position1.tif + zmap_position1.npy"
                 if pil else "project_movie_array on the .npy store")
@@ -2023,6 +2202,8 @@ def check_files(card: str, movie):
         print("files: CLI z-maps == project_movie_array on the in-memory "
               "array" + (", position1.tif == its projections as uint16" if pil
                          else ""))
+        trace_project_stage(card, big[:4])
+        envelope_rows = check_envelope(card, big)
 
         # card against CPU on one H x W crop of frame 0
         crop = big[:1, :, :, :H, :W]
@@ -2089,7 +2270,7 @@ def check_files(card: str, movie):
     inputs = {name: captured[shape] for name, shape in blurs.items()}
     launches = {name: by_shape[f"{shape[:3]} taps {shape[3:]}"]
                 for name, shape in blurs.items()}
-    return inputs, launches
+    return inputs, launches, envelope_rows
 
 
 TISSUE_CPU_FULL_S = 60.0   # the CPU twin runs every frame below this, else 3
@@ -3095,6 +3276,7 @@ class ParallelRun:
     sync_sites: collections.Counter = dataclasses.field(
         default_factory=collections.Counter)
     launches: dict = dataclasses.field(default_factory=dict)
+    blur_forms: dict = dataclasses.field(default_factory=dict)
 
     @property
     def on_card(self) -> bool:
@@ -3115,6 +3297,8 @@ class ParallelRun:
                          targets if self.on_card else []):
             out, secs = synced_seconds(fn, self.dev)
         self.launches[name] = {k: v for k, v in tipt.LAUNCHES.items() if v}
+        self.blur_forms[name] = {k: v for k, v in
+                                 tipt._device.BLUR_FORMS.items() if v}
         return out, secs
 
 
@@ -3162,6 +3346,8 @@ def parallel_frames(par: ParallelRun, movie, unet_depth: int,
         # once a frame each; the flood's five launches a frame
         blur_launches({(Z, H, W, 5, 9, 9): T, (Z, H // 4, W // 4, 5, 1, 1): T,
                        (Z, H, W, 9, 17, 17): T, (1, H, W, 1, 25, 25): T})
+        assert par.blur_forms["watershed"] == {
+            "walk": 2 * T, "z_only": T, "tile25": T}, par.blur_forms
         assert got["diffusion_bf"] == T and got["settle"] == T, got
 
     def ws_frame(stack):
@@ -3315,6 +3501,9 @@ def parallel_space(par: ParallelRun, movie) -> dict:
         shard_launches.update({s: 2 * y_sh * x_sh for s in want_shapes})
         if par.on_card:
             blur_launches({s: shard_launches[s] for s in want_shapes})
+            assert par.blur_forms[f"spatial_{tag}"] == {
+                "walk": 4 * y_sh * x_sh, "z_only": 2 * y_sh * x_sh}, \
+                par.blur_forms
         grid_shape = smesh.devices.shape[1:]
         for t in range(2):
             ref = torch.from_numpy(big[t, 0]).to(dev).to(torch.float32)
@@ -3647,7 +3836,7 @@ def main() -> int:
                                0, torch.device("cuda"))
     rows = check_kernels(frames)
     rows["conv3x3_s8"] = check_conv_s8(card)
-    by_caller = check_ported_functions(frames, card)
+    by_caller, band_input = check_ported_functions(frames, card)
     t0 = time.time()
     movie_z1 = make_movie(T=8, Z=1, H=1024, W=1024, seed=0).astype(np.uint16)
     movie_z30 = make_movie(T=8, Z=30, H=1024, W=1024, seed=0).astype(np.uint16)
@@ -3662,7 +3851,7 @@ def main() -> int:
                              .astype(np.uint16)).cuda()
     rows.update(check_projection_kernels(stack))
     projection_breakdown(stack, card)
-    check_fused_vs_unfused(stack)
+    frame_inputs = check_fused_vs_unfused(stack)
     del stack
     check_pipeline(card, movie_z1)
     launches, blur_shapes = check_pipeline(card, movie_z30)
@@ -3671,15 +3860,28 @@ def main() -> int:
     check_card_vs_cpu()
     check_keras_weights(card)
     check_training(card)
-    blur_inputs, blur_launches_cli = check_files(card, movie_z30)
+    blur_inputs, blur_launches_cli, envelope_rows = check_files(card, movie_z30)
     feed = check_tissue(card, movie_z30)
     cli_launches, cli_unet_launches = check_cli(card, movie_z30, feed, launches)
     del feed
     par_launches, shard_rows = check_parallel(card, movie_z30)
-    driver_rows = {name: check_driver_blur(name, *x, card)
+    driver_rows = {f"driver_{name}": dict(check_driver_blur(name, *x, card),
+                                          launches=blur_launches_cli[name])
                    for name, x in blur_inputs.items()}
     del blur_inputs
-    check_ragged_blurs()
+    # the frame-sharded pipelines' unfused projection of (30, 1024, 1024)
+    # frames (one launch of each a frame on the sharded watershed run) and
+    # band_pass_filter's blur (one a call)
+    T = movie_z30.shape[0]
+    for shape, x in frame_inputs.items():
+        name = f"frame_{'pre' if shape[3] == 5 else 'mask'}_blur"
+        driver_rows[name] = dict(check_driver_blur(name, *x, card), launches=T)
+    driver_rows["band_pass"] = dict(
+        check_driver_blur("band_pass", *band_input, card),
+        launches=by_caller["blur3d"]["band_pass_filter"])
+    del frame_inputs, band_input
+    driver_rows.update(envelope_rows)
+    ragged = check_ragged_blurs(card)
 
     table = []
     for name in KERNELS:
@@ -3696,6 +3898,9 @@ def main() -> int:
         if name == "blur3d":  # its second main-path shape, and launches by shape
             b = rows["blur3d_score"]
             at_unet.update({
+                "form": "tile25", "generic_ms": None,
+                "form_score_blur": "z_only", "generic_ms_score_blur": None,
+                "ragged_walk_and_generic_ms": ragged,
                 "max_abs_err_score_blur": b["err"], "ms_score_blur": b["ms"],
                 "ms_min_score_blur": b["ms_min"], "ms_max_score_blur": b["ms_max"],
                 "device_ms_score_blur": b["device_ms"],
@@ -3731,22 +3936,19 @@ def main() -> int:
             **({"launches_by_function": by_caller[name]}
                if name in by_caller else {}),
             **{k: r[k] for k in ("ms_min", "ms_max", "device_ms") if k in r}})
-    for name, r in driver_rows.items():  # blur3d at the driver's shapes
+    # blur3d at the unfused projection's shapes (the driver, the
+    # frame-sharded pipelines, band_pass_filter, the production envelope,
+    # the space shards): the form each ran and the generic form's time
+    for name, r in {**driver_rows, **{f"shard_{k}": v for k, v in
+                                     shard_rows.items()}}.items():
         table.append({
-            "name": f"blur3d_driver_{name}", "route": "cuda",
+            "name": f"blur3d_{name}", "route": "cuda",
             "source": KERNEL_SOURCE["blur3d"], "replaces": REPLACES["blur3d"],
-            "shape": list(r["shape"]), "launches": blur_launches_cli[name],
-            "max_abs_err": r["err"], "ms": r["device_ms"],
-            "events_ms": r["ms"], "events_ms_min": r["ms_min"],
-            "events_ms_max": r["ms_max"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
-            "library_ms": r["library_ms"]})
-    for name, r in shard_rows.items():  # blur3d at the space shards' shapes
-        table.append({
-            "name": f"blur3d_shard_{name}", "route": "cuda",
-            "source": KERNEL_SOURCE["blur3d"], "replaces": REPLACES["blur3d"],
-            "shape": list(r["shape"]), "launches": r["launches"],
-            "max_abs_err": r["err"], "ms": r["device_ms"],
+            "shape": list(r["shape"]), "form": r["form"],
+            "launches": r["launches"], "max_abs_err": r["err"],
+            "ms": r["device_ms"], "ms_runs": r["device_ms_runs"],
+            "generic_ms": r["generic_ms"],
+            "generic_ms_runs": r["generic_ms_runs"],
             "events_ms": r["ms"], "events_ms_min": r["ms_min"],
             "events_ms_max": r["ms_max"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],

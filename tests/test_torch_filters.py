@@ -152,19 +152,54 @@ def pallas_blur(monkeypatch):
 
 
 @pytest.mark.parametrize("shape,taps", [((2, 64, 128), (1, 25, 25)),
-                                        ((6, 32, 128), (5, 1, 1))],
-                         ids=["watershed_pre_blur", "score_z_blur"])
+                                        ((6, 32, 128), (5, 1, 1)),
+                                        ((6, 32, 128), (5, 9, 9)),
+                                        ((6, 32, 128), (9, 17, 17))],
+                         ids=["watershed_pre_blur", "score_z_blur",
+                              "driver_pre_blur", "driver_mask_blur"])
 def test_blur3d_plain_matches_pallas(pallas_blur, shape, taps):
     """The plain version against the Pallas kernel itself, at the two
-    main-path tap sets (the JAX package's blur-kernel tolerance)."""
+    main-path tap sets and the unfused projection's two (the walk form's;
+    the JAX package's blur-kernel tolerance)."""
     rng = np.random.default_rng(7)
     x = (rng.random(shape) * 6e4).astype(np.float32)
-    sigma = {1: 0.0, 5: 0.5, 25: 3.0}
+    sigma = {1: 0.0, 5: 0.5, 9: 1.0, 17: 2.0, 25: 3.0}
     kz, ky, kx = (gaussian_kernel1d(sigma[n]) for n in taps)
     assert tuple(map(len, (kz, ky, kx))) == taps
+    assert pallas_blur.blur3d_pallas_supported(shape, taps)
     want = np.asarray(pallas_blur.blur3d_pallas(jnp.asarray(x), kz, ky, kx))
     got = blur_cuda.blur3d_plain(torch.from_numpy(x), kz, ky, kx).numpy()
     np.testing.assert_allclose(got, want, rtol=2e-6, atol=1e-4)
+
+
+@pytest.mark.parametrize("taps,form", [
+    ((5, 9, 9), "walk"), ((9, 17, 17), "walk"), ((1, 9, 9), "walk"),
+    ((1, 17, 17), "generic"), ((5, 17, 17), "generic"), ((9, 9, 9), "generic"),
+    ((1, 25, 25), "tile25"), ((5, 25, 25), "tile25"), ((5, 1, 1), "z_only"),
+    ((1, 1, 1), "z_only"), ((3, 9, 9), "generic"), ((5, 9, 17), "generic"),
+    ((5, 9, 1), "generic"), ((9, 13, 13), "generic"), ((7, 17, 17), "generic"),
+    ((1, 33, 1), "generic")])
+def test_blur3d_form(taps, form):
+    """The form ``blur3d_form`` picks depends on the taps alone, the same at
+    every shape (ragged, thinner than the z taps, one plane); the wrapper
+    refuses a form that does not take the taps, and ``form="generic"``
+    only in place of the walk form."""
+    for shape in ((30, 2048, 2048), (40, 2000, 2000), (1, 1024, 1024),
+                  (2, 97, 203), (30, 953, 551), (1, 1, 1)):
+        assert blur_cuda.blur3d_form(shape, taps) == form, shape
+    x = torch.from_numpy(np.random.default_rng(9).random((3, 20, 24))
+                         .astype(np.float32))
+    kz, ky, kx = (_random_taps(n, np.random.default_rng(n)) for n in taps)
+    want = blur_cuda.blur3d_plain(x, kz, ky, kx)
+    assert torch.equal(blur_cuda.blur3d(x, kz, ky, kx, form=form), want)
+    other = "walk" if form != "walk" else "tile25"
+    with pytest.raises(ValueError):
+        blur_cuda.blur3d(x, kz, ky, kx, form=other)
+    if form == "walk":
+        assert torch.equal(blur_cuda.blur3d(x, kz, ky, kx, form="generic"), want)
+    elif form != "generic":
+        with pytest.raises(ValueError):
+            blur_cuda.blur3d(x, kz, ky, kx, form="generic")
 
 
 def _random_taps(n, rng):
@@ -173,18 +208,25 @@ def _random_taps(n, rng):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("taps", [(1, 25, 25), (5, 1, 1), (3, 33, 1),
-                                  (33, 1, 33), (1, 1, 1)])
+@pytest.mark.parametrize("taps,form", [
+    ((1, 25, 25), None), ((5, 1, 1), None), ((3, 33, 1), None),
+    ((33, 1, 33), None), ((1, 1, 1), None),
+    ((5, 9, 9), None), ((5, 9, 9), "generic"),
+    ((9, 17, 17), None), ((9, 17, 17), "generic"),
+    ((1, 9, 9), None), ((1, 9, 9), "generic")])
 @pytest.mark.parametrize("Y,X", [(97, 203), (100, 260)])
 @pytest.mark.parametrize("Z", [1, 2, 30])
-def test_blur3d_kernel_matches_plain_on_hard_inputs(cuda_device, Z, Y, X, taps):
+def test_blur3d_kernel_matches_plain_on_hard_inputs(cuda_device, Z, Y, X, taps,
+                                                    form):
     """Shapes no tile divides (97 x 203 also no 16-byte word), stacks
-    thinner than the z taps, every kernel form: bit for bit."""
+    thinner than the z taps, every kernel form (the walk form's tap sets
+    also forced into the generic tile form): bit for bit."""
     rng = np.random.default_rng(8)
     x = torch.from_numpy((rng.random((Z, Y, X)) * 6e4).astype(np.float32)
                          ).to(cuda_device)
     kz, ky, kx = (_random_taps(n, rng) for n in taps)
-    got = blur_cuda.blur3d(x, kz, ky, kx)
+    got = blur_cuda.blur3d(x, kz, ky, kx, form=form)
     want = blur_cuda.blur3d_plain(x, kz, ky, kx)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
-    assert torch.equal(blur_cuda.blur3d(x, kz, ky, kx), got), "two runs differ"
+    assert torch.equal(blur_cuda.blur3d(x, kz, ky, kx, form=form), got), \
+        "two runs differ"

@@ -7,9 +7,10 @@ so an edited source is rebuilt and a stale library is never loaded.
 
 Every kernel wrapper adds the number of kernels it launched to
 ``LAUNCHES[name]``; the blur, launched at more than one shape on a path, also
-to ``BLUR_LAUNCHES[(Z, Y, X, tz, ty, tx)]``, and the int8 conv, which has
-three forms, to ``CONV_LAUNCHES[form]``. ``reset_launches()`` zeroes the
-counts so a caller can show that a run went through the kernels.
+to ``BLUR_LAUNCHES[(Z, Y, X, tz, ty, tx)]`` and ``BLUR_FORMS[form]``, and
+the int8 conv, which has three forms, to ``CONV_LAUNCHES[form]``.
+``reset_launches()`` zeroes the counts so a caller can show that a run went
+through the kernels.
 """
 
 from __future__ import annotations
@@ -24,10 +25,10 @@ from typing import Dict, Iterable, Optional, Union
 
 import torch
 
-__all__ = ["LAUNCHES", "BLUR_LAUNCHES", "CONV_LAUNCHES", "KERNEL_SOURCES",
-           "resolve_device", "build_kernels", "load_library", "reset_launches",
-           "check_cuda", "ptr", "stream_ptr", "require_cuda_tensor",
-           "host_to_device", "host_floats", "to_host"]
+__all__ = ["LAUNCHES", "BLUR_LAUNCHES", "BLUR_FORMS", "CONV_LAUNCHES",
+           "KERNEL_SOURCES", "resolve_device", "build_kernels", "load_library",
+           "reset_launches", "check_cuda", "ptr", "stream_ptr",
+           "require_cuda_tensor", "host_to_device", "host_floats", "to_host"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 DEFAULT_BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
@@ -43,6 +44,8 @@ LAUNCHES: Dict[str, int] = {"blur3d": 0, "diffusion_bf": 0,
                             "conv3x3_s8": 0}
 # blur3d launches by (Z, Y, X, tz, ty, tx)
 BLUR_LAUNCHES: collections.Counter = collections.Counter()
+# blur3d launches by form ("z_only", "tile25", "walk", "generic")
+BLUR_FORMS: collections.Counter = collections.Counter()
 # conv3x3_s8 launches by form ("tensor_core", "first_conv", "generic")
 CONV_LAUNCHES: collections.Counter = collections.Counter()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -98,6 +101,7 @@ def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
     BLUR_LAUNCHES.clear()
+    BLUR_FORMS.clear()
     CONV_LAUNCHES.clear()
 
 

@@ -5,16 +5,25 @@
 //   ops/filters.py:gaussian_blur for every blur with fewer than 31 taps on
 //   an axis. On the main path: the watershed pre-blur (sigma 3, taps (1, 25,
 //   25), a (2, 1024, 1024) batch) and the z axis of the projection's
-//   small-score blur (taps (5, 1, 1), a (30, 256, 256) volume).
+//   small-score blur (taps (5, 1, 1), a (30, 256, 256) volume); on the
+//   unfused projection (the projection driver, parallel/, and every movie
+//   the fused kernels do not take): the pre-blur, taps (5, 9, 9), and the
+//   one-hot z-mask blur, taps (9, 17, 17), of a whole (Z, Y, X) frame; and
+//   band_pass_filter's low sigma, taps (1, 9, 9).
 //
-// Bound on an H100: memory. The function reads the (Z, Y, X) float32 volume
-// once and writes it once (16.8 MB at (2, 1024, 1024), ~5.0 us at 3.35 TB/s;
-// 15.7 MB at (30, 256, 256), ~4.7 us); its arithmetic is 2 * (tz + ty + tx)
-// flops per voxel (~0.21 GFLOP for the 25 x 25 blur, ~3.2 us at 67 TFLOP/s
-// float32). Every multiply and add is issued on its own here (no FMA), so
-// the 25 x 25 blur's arithmetic floor is about twice that operation bound.
+// Bound on an H100: memory for most tap sets. The function reads the (Z, Y,
+// X) float32 volume once and writes it once (16.8 MB at (2, 1024, 1024),
+// ~5.0 us at 3.35 TB/s; 1.0 GB at (30, 2048, 2048), ~0.30 ms); its
+// arithmetic is 2 * (tz + ty + tx) flops per voxel (~0.21 GFLOP for the 25 x
+// 25 blur, ~3.2 us at 67 TFLOP/s float32; 10.8 GFLOP for (9, 17, 17) at
+// 2048^2 x 30, ~0.16 ms). Every multiply and add is issued on its own here
+// (no FMA), so the arithmetic floor is about twice that operation bound:
+// ~0.33 ms for (9, 17, 17), near its byte bound.
 //
-// Two kernels, picked by the taps:
+// Four kernels. blur3d_f32 picks among the first three by the taps (the
+// forms of PRs 1-13); blur3d_walk_f32 launches the fourth, which the
+// wrapper (ops/blur_cuda.py:blur3d_form) picks for the tap sets it
+// compiles:
 // - z only (ty == tx == 1): no shared memory. A thread owns four neighbouring
 //   voxels of a plane (one 16-byte word) and a chunk of BZ_CHUNK output
 //   planes; it asks for all BZ_CHUNK + tz - 1 planes of its window at once
@@ -30,7 +39,40 @@
 //   for the 25-tap blur (1.6x its area); its ~92 KB of dynamic shared memory
 //   let two blocks share an SM. The main path's tap counts (25 in y and x;
 //   5 in z alone) are compiled in; others take a generic form with one load
-//   a tap.
+//   a tap. The tile form reads each input plane tz times (once for every
+//   output plane whose window holds it).
+// - walk (taps (1, 9, 9), (5, 9, 9), (9, 17, 17)): a block owns a BW_Y x BW_X
+//   tile of y x x for a chunk of output planes and walks z through it. Each
+//   thread owns a few 16-byte granules of the tile's halo and keeps, for
+//   each, the last tz input planes (plus BW_AHEAD - 1 loading ahead) in a
+//   register ring, so every input plane crosses memory once for each tile
+//   (its halo's overlap with the neighbours' mostly from L2). A step of the
+//   walk is one barrier: the x pass of output plane j, the y pass of plane
+//   j + 1 and the z sums of plane j + 2 run side by side on double buffers
+//   in shared memory, so no pass waits alone at a barrier. The y and x
+//   passes have their tap counts compiled in: register runs of BW_RUN
+//   outputs; the x window read as 16-byte words from a buffer whose row
+//   pitch is 4 mod 32 words, a quarter warp on two rows x 32 columns (no
+//   bank conflict), a warp storing four whole rows.
+//   Why 32 x 64 and 512 threads an SM: the z window lives in registers,
+//   tz float4 a granule. Sixteen warps an SM (one block of 512 threads, or
+//   two of 256 where tz * n <= BW_TWO_BLOCKS: the pre-blur and the 2-D
+//   blur) cap a thread at 128 registers; the 17-tap halo of a 32 x 64 tile
+//   is 48 x 80 (960 granules, two a thread: 72 registers of window at tz =
+//   9), the largest that fits. A 64-row or 128-column tile would cut the z
+//   pass's halo share (1.9x the tile now) but needs twice the registers; a
+//   z window in shared memory (cp.async / TMA, tz + 1 planes of halo) caps
+//   the tile the same way (227 KB / 10 planes) and adds tz shared loads a
+//   voxel. The z-mask blur at 2048^2 x 30 on an H100 SXM (700 W), by
+//   utils/kernel_variants.py blur in one run: 256 threads an SM 0.93 ms
+//   (247 registers), 384 0.97 (168 and a spill: three warps on a
+//   scheduler cap a thread at 168), 512 0.83.
+//   The y tasks (a column, 8 rows) go from the last thread down, so the
+//   threads with a granule fewer take them first; the x pass has 256 tasks
+//   (a row, 8 columns) on the first 256 threads. Along z a
+//   block walks a chunk of the planes; the launcher picks the chunk so that
+//   the card's last wave of blocks is full enough (a chunk reloads tz - 1
+//   planes).
 // The taps are kernel parameters (constant-bank operands): nothing is copied
 // to the card for them.
 //
@@ -38,7 +80,7 @@
 // round-to-nearest multiply and add (__fmul_rn/__fadd_rn: no contraction
 // into FMA): the order and rounding of the plain PyTorch version
 // (ops/blur_cuda.py:blur3d_plain). Clamped coordinates give exactly the
-// edge-replicate padding.
+// edge-replicate padding. Every form computes the same function bit for bit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -54,6 +96,12 @@ constexpr int BT_MIN_BLOCKS = 2;  // blocks an SM the registers must allow
 constexpr int BT_BATCH = 8;       // halo granules a thread has in flight
 constexpr int BZ_CHUNK = 8;       // output planes a thread of the z-only path owns
 constexpr int BZ_THREADS = 256;
+constexpr int BW_Y = 32;          // walk: output rows of a tile
+constexpr int BW_X = 64;          // walk: output columns of a tile
+constexpr int BW_RUN = 8;         // walk: outputs a task owns in the y and x passes
+constexpr int BW_SM_THREADS = 512;  // walk: threads an SM, four warps a scheduler
+constexpr int BW_AHEAD = 1;       // walk: planes a granule has loading ahead of its window
+constexpr int BW_TWO_BLOCKS = 45; // walk: tz * n up to which two blocks share an SM
 static_assert(BT_Y % BT_RUN == 0 && BT_X % BT_RUN == 0, "whole runs a tile");
 
 struct BlurTaps {
@@ -247,7 +295,200 @@ blur_tile_kernel(const float* __restrict__ x, float* __restrict__ out,
   }
 }
 
-static_assert(BT_RUN == 8, "the x pass stores two 16-byte words a run");
+static_assert(BT_RUN == 8 && BW_RUN == 8, "the x pass stores two 16-byte words a run");
+
+// ------------------------------------------------------------------- walk
+// the walk form's shape for tz taps on z and n on y and x
+template <int TZ, int N>
+struct Walk {
+  static constexpr int R = N / 2;
+  static constexpr int HR = BW_Y + 2 * R;   // halo rows
+  static constexpr int P = BW_X + 2 * R;    // halo columns: the z buffer's pitch
+  static constexpr int GR = P / 4;          // 16-byte granules a halo row
+  static constexpr int NG = HR * GR;        // granules of the halo
+  static constexpr int MIN_BLOCKS = TZ * N <= BW_TWO_BLOCKS ? 2 : 1;
+  static constexpr int NT = BW_SM_THREADS / MIN_BLOCKS;
+  static constexpr int G = (NG + NT - 1) / NT;       // granules a thread
+  static constexpr int YT = P * (BW_Y / BW_RUN);     // y tasks: a column, BW_RUN rows
+  static constexpr int YK = (YT + NT - 1) / NT;      // y tasks a thread
+  static constexpr int YP = P + (36 - P % 32) % 32;  // y buffer pitch, 4 mod 32
+  static constexpr int RING = TZ + BW_AHEAD - 1;     // planes a granule holds
+  static constexpr int ZB = HR * P, YB = BW_Y * YP;  // floats of a z / y buffer
+  static constexpr int SMEM = (int)sizeof(float) * 2 * (ZB + YB);  // two of each
+  static_assert(R % 4 == 0, "a halo of whole 16-byte words");
+  static_assert(BW_RUN == 8 && BW_X == 8 * BW_RUN && BW_Y * 8 <= NT &&
+                    NT % 32 == 0,
+                "x tasks: a row of eight runs, one a thread, four rows a warp");
+  static_assert(BW_Y % BW_RUN == 0, "whole y runs a tile");
+  static_assert((BW_RUN + N - 1) % 4 == 0, "the x window in 16-byte words");
+  static_assert(BW_AHEAD >= 1, "the next plane is asked for before it is summed");
+
+  // granule i of thread tid: halo granule tid + i * NT, if there is one
+  static __device__ __forceinline__ bool active(int i, int tid) {
+    return (i + 1) * NT <= NG || tid + i * NT < NG;
+  }
+};
+
+// four columns col .. col + 3 of a row, clamped to [0, X)
+__device__ __forceinline__ float4 load_granule(const float* __restrict__ row,
+                                               int col, bool whole, int X) {
+  if (whole) return __ldg(reinterpret_cast<const float4*>(row + col));
+  return make_float4(__ldg(row + clampi(col, 0, X - 1)),
+                     __ldg(row + clampi(col + 1, 0, X - 1)),
+                     __ldg(row + clampi(col + 2, 0, X - 1)),
+                     __ldg(row + clampi(col + 3, 0, X - 1)));
+}
+
+// The thread's granules of a walk: their row offsets in a plane, first
+// columns, whether one 16-byte load reads each, and the ring of planes.
+template <int TZ, int N>
+struct WalkGranules {
+  using W = Walk<TZ, N>;
+  int rowoff[W::G], col[W::G];
+  bool whole[W::G];
+  float4 win[W::G][W::RING];  // walk plane p in slot p % RING
+};
+
+// z sums of one output plane into zb, its window in ring slots s .. s + TZ
+// - 1; then slot s asks for walk plane ``next`` (none if < 0). I: the slot
+// s as a constant, found by one branch a slot.
+template <int TZ, int N, int I>
+__device__ __forceinline__ void walk_z(WalkGranules<TZ, N>& g, int s, int next,
+                                       float* __restrict__ zb, const BlurTaps& w,
+                                       const float* __restrict__ x, size_t plane,
+                                       int zbase, int Z, int X, int tid) {
+  using W = Walk<TZ, N>;
+  if constexpr (I + 1 < W::RING) {
+    if (s != I) {
+      walk_z<TZ, N, I + 1>(g, s, next, zb, w, x, plane, zbase, Z, X, tid);
+      return;
+    }
+  }
+  const float* src = x + (size_t)clampi(zbase + next, 0, Z - 1) * plane;
+#pragma unroll
+  for (int i = 0; i < W::G; ++i) {
+    if (!W::active(i, tid)) continue;
+    float4 a = mulv(w.z[0], g.win[i][I]);
+#pragma unroll
+    for (int t = 1; t < TZ; ++t)
+      a = addv(a, mulv(w.z[t], g.win[i][(I + t) % W::RING]));
+    const int q = tid + i * W::NT;
+    *reinterpret_cast<float4*>(zb + q / W::GR * W::P + q % W::GR * 4) = a;
+    if (next >= 0) g.win[i][I] = load_granule(src + g.rowoff[i], g.col[i], g.whole[i], X);
+  }
+}
+
+// y pass out of zb into yb: y task t is column t % P, rows r0 .. r0 +
+// BW_RUN - 1 (r0 = t / P * BW_RUN); thread tid takes tasks NT - 1 - tid +
+// k * NT, so that the threads with a granule fewer take the extra tasks
+template <int TZ, int N>
+__device__ __forceinline__ void walk_y(const float* __restrict__ zb,
+                                       float* __restrict__ yb, const BlurTaps& w,
+                                       int tid) {
+  using W = Walk<TZ, N>;
+#pragma unroll
+  for (int k = 0; k < W::YK; ++k) {
+    const int t = W::NT - 1 - tid + k * W::NT;
+    if ((k + 1) * W::NT > W::YT && t >= W::YT) break;
+    const int c = t % W::P, r0 = t / W::P * BW_RUN;
+    const float* in = zb + r0 * W::P + c;
+    float acc[BW_RUN];
+#pragma unroll
+    for (int i = 0; i < BW_RUN + N - 1; ++i)
+      taps_in_order<N>(w.y, i, in[i * W::P], acc);
+#pragma unroll
+    for (int o = 0; o < BW_RUN; ++o) yb[(r0 + o) * W::YP + c] = acc[o];
+  }
+}
+
+// x pass out of yb into output plane dst: row r, columns c0 .. c0 + BW_RUN
+// - 1 of the tile (output column c0's window starts at y-buffer column c0)
+template <int TZ, int N>
+__device__ __forceinline__ void walk_x(const float* __restrict__ yb,
+                                       float* __restrict__ dst, const BlurTaps& w,
+                                       int Y, int X, int y0, int x0, int vec,
+                                       int tid) {
+  using W = Walk<TZ, N>;
+  if (tid >= BW_Y * 8) return;
+  // warp v: rows 4v .. 4v + 3; a quarter warp (lanes 8h .. 8h + 7): two
+  // rows x four runs, 32 columns a row, which the y buffer's pitch (4 mod
+  // 32) puts on distinct banks; a warp stores four whole rows
+  const int lane = tid % 32, h = lane / 8, m = lane % 8;
+  const int r = tid / 32 * 4 + h / 2 * 2 + m / 4;
+  const int c0 = (h % 2 * 4 + m % 4) * BW_RUN;
+  const int yy = y0 + r, xx = x0 + c0;
+  if (yy >= Y || xx >= X) return;
+  const float4* in4 = reinterpret_cast<const float4*>(yb + r * W::YP + c0);
+  float acc[BW_RUN];
+#pragma unroll
+  for (int k4 = 0; k4 < (BW_RUN + N - 1) / 4; ++k4) {
+    const float4 v = in4[k4];
+    taps_in_order<N>(w.x, 4 * k4, v.x, acc);
+    taps_in_order<N>(w.x, 4 * k4 + 1, v.y, acc);
+    taps_in_order<N>(w.x, 4 * k4 + 2, v.z, acc);
+    taps_in_order<N>(w.x, 4 * k4 + 3, v.w, acc);
+  }
+  dst += (size_t)yy * X + xx;
+  if (vec && xx + BW_RUN <= X) {
+    reinterpret_cast<float4*>(dst)[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
+    reinterpret_cast<float4*>(dst)[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
+  } else {
+#pragma unroll
+    for (int o = 0; o < BW_RUN; ++o)
+      if (xx + o < X) dst[o] = acc[o];
+  }
+}
+
+// A block walks output planes z0 .. z0 + cz - 1 of one tile, three planes
+// in flight a step: the x pass of plane j (y buffer j % 2), the y pass of
+// plane j + 1 (z buffer (j + 1) % 2 into y buffer (j + 1) % 2) and the z
+// sums of plane j + 2 (into z buffer j % 2), then one barrier.
+template <int TZ, int N>
+__global__ void __launch_bounds__(Walk<TZ, N>::NT, Walk<TZ, N>::MIN_BLOCKS)
+blur_walk_kernel(const float* __restrict__ x, float* __restrict__ out,
+                 const BlurTaps w, int Z, int Y, int X, int cz, int vec) {
+  using W = Walk<TZ, N>;
+  extern __shared__ __align__(16) float smem[];
+  float* zbuf = smem;              // two z buffers: z sums over the halo
+  float* ybuf = smem + 2 * W::ZB;  // two y buffers: the y pass
+  const int tid = threadIdx.x;
+  const int y0 = blockIdx.y * BW_Y, x0 = blockIdx.x * BW_X;
+  const int z0 = blockIdx.z * cz, nz = min(cz, Z - z0);
+  const int zbase = z0 - TZ / 2;    // walk plane 0
+  const int nplanes = nz + TZ - 1;  // walk planes
+  const size_t plane = (size_t)Y * X;
+
+  WalkGranules<TZ, N> g;
+#pragma unroll
+  for (int i = 0; i < W::G; ++i) {
+    const int q = min(tid + i * W::NT, W::NG - 1);
+    g.rowoff[i] = clampi(y0 - W::R + q / W::GR, 0, Y - 1) * X;
+    g.col[i] = x0 - W::R + q % W::GR * 4;
+    g.whole[i] = vec && g.col[i] >= 0 && g.col[i] + 3 < X;
+  }
+#pragma unroll
+  for (int p = 0; p < W::RING; ++p) {
+    const float* src = x + (size_t)clampi(zbase + p, 0, Z - 1) * plane;
+#pragma unroll
+    for (int i = 0; i < W::G; ++i)
+      if (p < nplanes && W::active(i, tid))
+        g.win[i][p] = load_granule(src + g.rowoff[i], g.col[i], g.whole[i], X);
+  }
+
+  for (int j = -2; j < nz; ++j) {
+    if (j >= 0)
+      walk_x<TZ, N>(ybuf + (j & 1) * W::YB, out + (size_t)(z0 + j) * plane, w, Y,
+                    X, y0, x0, vec, tid);
+    if (j + 1 >= 0 && j + 1 < nz)
+      walk_y<TZ, N>(zbuf + ((j + 1) & 1) * W::ZB, ybuf + ((j + 1) & 1) * W::YB, w, tid);
+    if (j + 2 < nz) {
+      const int next = j + 2 + W::RING < nplanes ? j + 2 + W::RING : -1;
+      walk_z<TZ, N, 0>(g, (j + 2) % W::RING, next, zbuf + (j & 1) * W::ZB, w, x,
+                       plane, zbase, Z, X, tid);
+    }
+    __syncthreads();
+  }
+}
 
 template <int NY, int NX>
 cudaError_t launch_tile(const float* x, float* out, const BlurTaps& w, int Z,
@@ -271,6 +512,47 @@ cudaError_t launch_tile(const float* x, float* out, const BlurTaps& w, int Z,
   return cudaGetLastError();
 }
 
+template <int TZ, int N>
+cudaError_t launch_walk(const float* x, float* out, const BlurTaps& w, int Z,
+                        int Y, int X, int vec, cudaStream_t s) {
+  using W = Walk<TZ, N>;
+  static int slots = 0;  // blocks the card runs at once
+  if (slots == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)  // above 48 KB only after this
+      e = cudaFuncSetAttribute(blur_walk_kernel<TZ, N>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, W::SMEM);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, blur_walk_kernel<TZ, N>, W::NT, W::SMEM);
+    if (e != cudaSuccess) return e;
+    slots = max(1, sms * per_sm);
+  }
+  const int tiles_x = (X + BW_X - 1) / BW_X, tiles_y = (Y + BW_Y - 1) / BW_Y;
+  // z chunks: a chunk reloads TZ - 1 planes; more chunks fill the last wave
+  // of blocks. Cost: waves times a block's planes, a loaded-only plane
+  // counted as a quarter of a summed one
+  int cz = Z;
+  long long best = -1;
+  for (int n = 1; n <= min(Z, 16); ++n) {
+    const int c = (Z + n - 1) / n, chunks = (Z + c - 1) / c;
+    const long long waves =
+        ((long long)tiles_x * tiles_y * chunks + slots - 1) / slots;
+    const long long cost = waves * (4LL * c + TZ - 1);
+    if (best < 0 || cost < best) {
+      best = cost;
+      cz = c;
+    }
+  }
+  dim3 grid(tiles_x, tiles_y, (Z + cz - 1) / cz);
+  blur_walk_kernel<TZ, N><<<grid, W::NT, W::SMEM, s>>>(x, out, w, Z, Y, X, cz,
+                                                       vec);
+  return cudaGetLastError();
+}
+
 template <typename V>
 cudaError_t launch_z(const float* x, float* out, const BlurTaps& w, int Z,
                      int n, int tz, cudaStream_t s) {
@@ -284,24 +566,33 @@ cudaError_t launch_z(const float* x, float* out, const BlurTaps& w, int Z,
   return cudaGetLastError();
 }
 
+// the taps of a call, or false if blur3d takes no such call
+bool pack_taps(const float* taps, int Z, int Y, int X, int tz, int ty, int tx,
+               BlurTaps& w) {
+  if (tz < 1 || ty < 1 || tx < 1 || tz > kMaxTaps || ty > kMaxTaps ||
+      tx > kMaxTaps || tz % 2 == 0 || ty % 2 == 0 || tx % 2 == 0 || Z < 1 ||
+      Y < 1 || X < 1 || Z > 65535 || (Y + BT_Y - 1) / BT_Y > 65535 ||
+      (Y + BW_Y - 1) / BW_Y > 65535 || (size_t)Y * X > 0x7fffffff)
+    return false;
+  w = {};
+  for (int i = 0; i < tz; ++i) w.z[i] = taps[i];
+  for (int i = 0; i < ty; ++i) w.y[i] = taps[tz + i];
+  for (int i = 0; i < tx; ++i) w.x[i] = taps[tz + ty + i];
+  return true;
+}
+
 }  // namespace
 
 extern "C" {
 
 // taps: HOST array of tz + ty + tx floats (z taps, then y, then x), each
 // count odd and <= 33, passed on as kernel parameters. Returns the
-// cudaError_t of the launch.
+// cudaError_t of the launch. Picks the z-only, 25-tap tile or generic tile
+// kernel by the taps.
 int blur3d_f32(const float* x, float* out, const float* taps, int Z, int Y,
                int X, int tz, int ty, int tx, void* stream) {
-  if (tz < 1 || ty < 1 || tx < 1 || tz > kMaxTaps || ty > kMaxTaps ||
-      tx > kMaxTaps || tz % 2 == 0 || ty % 2 == 0 || tx % 2 == 0 || Z < 1 ||
-      Y < 1 || X < 1 || Z > 65535 || (Y + BT_Y - 1) / BT_Y > 65535 ||
-      (size_t)Y * X > 0x7fffffff)
-    return (int)cudaErrorInvalidValue;
-  BlurTaps w = {};
-  for (int i = 0; i < tz; ++i) w.z[i] = taps[i];
-  for (int i = 0; i < ty; ++i) w.y[i] = taps[tz + i];
-  for (int i = 0; i < tx; ++i) w.x[i] = taps[tz + ty + i];
+  BlurTaps w;
+  if (!pack_taps(taps, Z, Y, X, tz, ty, tx, w)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const bool aligned = (uintptr_t)x % 16 == 0 && (uintptr_t)out % 16 == 0;
   if (ty == 1 && tx == 1) {
@@ -315,6 +606,24 @@ int blur3d_f32(const float* x, float* out, const float* taps, int Z, int Y,
   if (ty == 25 && tx == 25)  // the watershed pre-blur
     return (int)launch_tile<25, 25>(x, out, w, Z, Y, X, tz, ty, tx, vec, s);
   return (int)launch_tile<0, 0>(x, out, w, Z, Y, X, tz, ty, tx, vec, s);
+}
+
+// The walk form, for taps (1, 9, 9), (5, 9, 9) and (9, 17, 17); the same
+// arguments as blur3d_f32. Any other tap set is refused
+// (cudaErrorInvalidValue).
+int blur3d_walk_f32(const float* x, float* out, const float* taps, int Z,
+                    int Y, int X, int tz, int ty, int tx, void* stream) {
+  BlurTaps w;
+  if (!pack_taps(taps, Z, Y, X, tz, ty, tx, w) || ty != tx)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int vec = X % 4 == 0 && (uintptr_t)x % 16 == 0 && (uintptr_t)out % 16 == 0;
+  switch (tz * 100 + ty) {
+    case 109: return (int)launch_walk<1, 9>(x, out, w, Z, Y, X, vec, s);
+    case 509: return (int)launch_walk<5, 9>(x, out, w, Z, Y, X, vec, s);
+    case 917: return (int)launch_walk<9, 17>(x, out, w, Z, Y, X, vec, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 const char* kernel_error_string(int err) {

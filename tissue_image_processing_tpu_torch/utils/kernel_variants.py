@@ -8,7 +8,7 @@ other tuning constants.
     python3 -m tissue_image_processing_tpu_torch.utils.kernel_variants \\
         score b1,SC_MIN_BLOCKS=1 z16,SC_ZCHUNK=16
     python3 -m tissue_image_processing_tpu_torch.utils.kernel_variants \\
-        blur y32,BT_Y=32 c4,BZ_CHUNK=4
+        blur y32,BT_Y=32 c4,BZ_CHUNK=4 a3,BW_AHEAD=3
     python3 -m tissue_image_processing_tpu_torch.utils.kernel_variants \\
         conv s3,TC_MAX_STAGES=3 r2,FC_ROWS=2,FC_THREADS=128 noepilogue [check]
     python3 -m tissue_image_processing_tpu_torch.utils.kernel_variants \
@@ -187,6 +187,8 @@ def build_variants(source: str, signatures, specs):
             continue
         lib = ctypes.CDLL(str(path))
         for fn, argtypes in signatures.items():
+            if not hasattr(lib, fn):  # an older source without this entry
+                continue
             getattr(lib, fn).argtypes = list(argtypes)
             getattr(lib, fn).restype = ctypes.c_int
         lib.kernel_error_string.argtypes = [ctypes.c_int]
@@ -309,15 +311,42 @@ def tune_score(specs) -> None:
     _time_variants("projection", fused._SIGNATURES, specs, cases)
 
 
+def _driver_blur_inputs():
+    """The unfused projection's pre-blur and z-mask blur inputs on a
+    (2, 30, 2048, 2048) frame (the headline frame tiled 2 x 2, as the
+    projection driver's cell makes it): (x, kz, ky, kx) by name."""
+    import chip_smoke
+    from tissue_image_processing_tpu_torch.projection.surface import (
+        time_point_surface_projection)
+
+    frame = make_movie(T=1, Z=30, H=1024, W=1024, seed=2)[0].astype(np.uint16)
+    stack = torch.from_numpy(np.tile(frame, (1, 1, 2, 2))).cuda()
+    shapes = chip_smoke.driver_blurs(30, 2048)
+    wanted = {shapes["pre_blur"], shapes["mask_blur"]}
+    with chip_smoke.capture_blur_inputs(wanted) as captured:
+        time_point_surface_projection(stack, airyscan=False)
+    return {name: captured[shapes[name]] for name in ("pre_blur", "mask_blur")}
+
+
 def tune_blur(specs) -> None:
     """The blur at its two main-path shapes: the watershed pre-blur of two
     thresholded frames, taps (1, 25, 25), and the z axis of the small-score
-    blur, taps (5, 1, 1)."""
+    blur, taps (5, 1, 1); and at the projection driver's two 2048^2 shapes
+    (the unfused projection's pre-blur, taps (5, 9, 9), and z-mask blur,
+    taps (9, 17, 17), on a (30, 2048, 2048) frame), which take the walk
+    form: each variant's walk form, and the generic tile form of the same
+    library beside it. A library without the walk form (``SOURCE=`` an
+    older source) runs the generic form in both rows."""
     from tissue_image_processing_tpu_torch.ops.filters import gaussian_kernel1d
 
     seg = _pre_blur_input()
     small = fused.score_pass(*_score_input())
     k25, k5, one = gaussian_kernel1d(3.0), gaussian_kernel1d(0.5), (1.0,)
+
+    def walk(x, *k):  # the walk form where the loaded library has it
+        has = hasattr(_device._libs.get("blur3d"), "blur3d_walk_f32")
+        return blur_cuda.blur3d(x, *k, form=None if has else "generic")
+
     cases = {
         "pre-blur (2, 1024, 1024)": (
             lambda: blur_cuda.blur3d(seg, one, k25, k25),
@@ -325,6 +354,13 @@ def tune_blur(specs) -> None:
         "score blur (30, 256, 256)": (
             lambda: blur_cuda.blur3d(small, k5, one, one),
             blur_cuda.blur3d_plain(small, k5, one, one))}
+    for name, (x, *k) in _driver_blur_inputs().items():
+        want = blur_cuda.blur3d_plain(x, *k)
+        taps = tuple(map(len, k))
+        cases[f"driver {name} {tuple(x.shape)} taps {taps}, walk"] = (
+            lambda x=x, k=k: walk(x, *k), want)
+        cases[f"driver {name}, generic"] = (
+            lambda x=x, k=k: blur_cuda.blur3d(x, *k, form="generic"), want)
     _time_variants("blur3d", blur_cuda._SIGNATURES, specs, cases)
 
 
