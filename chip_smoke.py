@@ -2,6 +2,8 @@
 """On-card smoke run of the PyTorch/CUDA port (``tissue_image_processing_tpu_torch``).
 
     python3 chip_smoke.py            # needs one CUDA card; run from the repo root
+    python3 chip_smoke.py parallel   # the build and the "parallel" phase alone
+    python3 chip_smoke.py cards      # its mesh of every card, against one card
 
 Phases (any failure exits non-zero; no phase catches and continues):
 
@@ -144,22 +146,29 @@ Phases (any failure exits non-zero; no phase catches and continues):
    subcommand's seconds;
 10. "parallel": ``parallel/`` (``check_parallel``) over virtual meshes of
     four positions on the one card (``devices=[torch.device("cuda")] *
-    4``; on one card the shards take turns on its stream, so the frames/s
-    measure the mesh's overhead, not scaling): the frame-sharded watershed
+    4``), each position on a CUDA stream of its own, the shard bodies of
+    the sharded paths under ``torch.cuda.set_sync_debug_mode("error")``
+    (a host synchronisation fails the run): the frame-sharded watershed
     on the headline movie (ids equal to the unsharded chain, the unfused
-    projection's blurs and the flood launched, not the fused kernels;
-    frames/s of both), the chunked form from a ``MovieStore`` (chunk 4, and
-    a padded tail on a T=6 cut), the frame-sharded U-Net at depth 3 / 128
-    filters / bfloat16 (ids equal, ``cc_scan`` launched), the
-    space-sharded projection of two frames tiled to 2048^2 over (frame, y,
-    x) = (1, 2, 2) and (2, 2, 1) against the unsharded precise projection
-    (clip equal; z-maps equal wherever the score's top two planes are more
-    than 1e-5 apart; projections rtol 2e-4 / atol 2e-3) with ``blur3d`` at
-    each shard shape bit for bit and timed, the (data 2 x model 2) training
-    step against ``make_train_step`` (float32, the CPU tests' tolerances)
-    and 10 bfloat16 steps of each (steps/s), the card against the CPU on
-    the CPU tests' tiny shapes, and the host synchronisations inside each
-    path's shard bodies;
+    projection's blurs and the flood launched, not the fused kernels),
+    the chunked form from a ``MovieStore`` (chunk 4, and a padded tail on
+    a T=6 cut), the frame-sharded U-Net at depth 3 / 128 filters /
+    bfloat16 (ids equal, ``cc_scan`` launched), the space-sharded
+    projection of two frames tiled to 2048^2 over (frame, y, x) = (1, 2,
+    2) and (2, 2, 1) against the unsharded precise projection (clip
+    equal; z-maps equal wherever the score's top two planes are more than
+    1e-5 apart; projections rtol 2e-4 / atol 2e-3) with ``blur3d`` at each
+    shard shape bit for bit and timed; each of these in its serial and
+    streams forms, bit for bit equal, the frames/s of each (three runs,
+    in turns); one watershed run traced: each shard's
+    hand-written kernels on its position's stream, the overlapped device
+    ms, the busy share, the host seconds to queue a shard body against
+    its device seconds; where two or more cards are visible, the
+    watershed and U-Net on a mesh of every card (ids equal to one card);
+    the (data 2 x model 2) training step against ``make_train_step``
+    (float32, the CPU tests' tolerances) and 10 bfloat16 steps of each
+    (steps/s), the card against the CPU on the CPU tests' tiny shapes,
+    and the host synchronisations counted by path;
 11. print the kernel table as one JSON object (launches from the Z=30
     watershed run, the component minimum's from the U-Net run, the int8
     conv's from the int8 U-Net run, with its launches by form — its times
@@ -193,10 +202,14 @@ import dataclasses
 import importlib
 import importlib.util
 import json
+import re
 import subprocess
 import sys
+import tempfile
 import time
 import types
+from pathlib import Path
+from typing import Optional
 
 import numpy as np
 
@@ -291,12 +304,14 @@ def kernel_split(fn, reps: int) -> str:
     return ", ".join(f"{k} {us:.1f}" for k, us in sorted(rows, key=lambda r: -r[1]))
 
 
-def device_profile(fn, rows: bool = False):
+def device_profile(fn, rows: bool = False, trace: Optional[str] = None):
     """(device operations launched, their summed device ms) of one call of
     ``fn()`` after a warm one, by the profiler's CUDA trace: against the
     call's wall time it says how much of it the card was busy. With
     ``rows``, also the traced call's host-clock ms (profiler on) and its
-    device operations as (name, count, device ms), costliest first."""
+    device operations as (name, count, device ms), costliest first. With
+    ``trace``, the Chrome trace is written to that path (for
+    :func:`stream_activity`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -307,6 +322,8 @@ def device_profile(fn, rows: bool = False):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    if trace is not None:
+        prof.export_chrome_trace(trace)
 
     def device_ms(e):  # the attribute's name changed between PyTorch versions
         return (getattr(e, "device_time_total", None)
@@ -3197,12 +3214,21 @@ def shard_blurs(Z: int, side: int, y_shards: int, x_shards: int) -> dict:
 
 
 @contextlib.contextmanager
-def count_syncs(counts: dict, sites: collections.Counter, key: str, targets):
+def count_syncs(counts: dict, sites: collections.Counter, key: str, targets,
+                mode: str = "error", seconds: Optional[list] = None):
     """While open, each call of a function in ``targets`` ((module, name)
     pairs: the shard bodies of a path) runs under
-    ``torch.cuda.set_sync_debug_mode("warn")``; its host synchronisation
-    warnings are added to ``counts[key]`` and, by the source line that
-    raised each, to ``sites``."""
+    ``torch.cuda.set_sync_debug_mode(mode)``:
+
+    - ``"error"``: a host synchronisation raises inside the body and fails
+      the run (``counts[key]`` stays 0);
+    - ``"warn"``: the synchronisation warnings are added to ``counts[key]``
+      and, by the source line that raised each, to ``sites``.
+
+    With ``seconds``, each call appends (function name, its stream's
+    handle, host-clock seconds): the seconds the host took to queue the
+    body, since a body that does not synchronise returns before its device
+    work ends."""
     import os
     import warnings
 
@@ -3211,7 +3237,21 @@ def count_syncs(counts: dict, sites: collections.Counter, key: str, targets):
     counts.setdefault(key, 0)
     origs = [(mod, name, getattr(mod, name)) for mod, name in targets]
 
-    def wrap(fn):
+    def erroring(name, fn):
+        def guarded(*args, **kwargs):
+            torch.cuda.set_sync_debug_mode("error")
+            handle = torch.cuda.current_stream(
+                torch.cuda.current_device()).cuda_stream
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                if seconds is not None:
+                    seconds.append((name, handle, time.perf_counter() - t0))
+                torch.cuda.set_sync_debug_mode("default")
+        return guarded
+
+    def counting(name, fn):
         def counted(*args, **kwargs):
             with warnings.catch_warnings(record=True) as seen:
                 warnings.simplefilter("always")
@@ -3226,8 +3266,9 @@ def count_syncs(counts: dict, sites: collections.Counter, key: str, targets):
                                  for w in syncs)
         return counted
 
+    wrap = erroring if mode == "error" else counting
     for mod, name, fn in origs:
-        setattr(mod, name, wrap(fn))
+        setattr(mod, name, wrap(name, fn))
     try:
         yield counts
     finally:
@@ -3236,17 +3277,109 @@ def count_syncs(counts: dict, sites: collections.Counter, key: str, targets):
 
 
 def synced_seconds(fn, dev):
-    """(result, host-clock seconds) of ``fn()``, the device synchronised
-    before and after."""
+    """(result, host-clock seconds) of ``fn()``, every visible card
+    synchronised before and after."""
     import torch
 
-    if dev.type == "cuda":
-        torch.cuda.synchronize()
+    def sync():
+        if dev.type == "cuda":
+            for i in range(torch.cuda.device_count()):
+                torch.cuda.synchronize(i)
+
+    sync()
     t0 = time.perf_counter()
     out = fn()
-    if dev.type == "cuda":
-        torch.cuda.synchronize()
+    sync()
     return out, time.perf_counter() - t0
+
+
+def same(a, b) -> bool:
+    """Bit-for-bit equality of tensors, arrays, or tuples and lists of
+    them."""
+    import torch
+
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(same(x, y) for x, y in zip(a, b))
+    if isinstance(a, torch.Tensor):
+        return (a.dtype == b.dtype and a.shape == b.shape
+                and a.device == b.device and bool(torch.equal(a, b)))
+    return np.array_equal(a, b)
+
+
+def handwritten_kernels() -> list:
+    """The ``__global__`` functions of the port's CUDA sources, longest
+    name first."""
+    names = set()
+    for src in (Path(__file__).resolve().parent / "tissue_image_processing_tpu_torch"
+                / "csrc").glob("*.cu"):
+        names.update(re.findall(
+            r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)",
+            src.read_text()))
+    return sorted(names, key=len, reverse=True)
+
+
+def stream_activity(path: str, kernels) -> dict:
+    """Device activity by stream in the profiler's Chrome trace at
+    ``path``: {stream id: {"intervals": [(start us, end us)] of its
+    kernels, copies and fills, "kernels": Counter of the hand-written
+    kernels (``kernels``: their names) it ran, "runs": their (name, start
+    us, end us)}}."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    streams = {}
+    for e in events:
+        if e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset") \
+                or "dur" not in e:
+            continue
+        s = streams.setdefault(e["args"]["stream"], {
+            "intervals": [], "kernels": collections.Counter(), "runs": []})
+        s["intervals"].append((float(e["ts"]), float(e["ts"]) + float(e["dur"])))
+        name = next((k for k in kernels
+                     if re.search(rf"\b{k}\b", e["name"])), None)
+        if e["cat"] == "kernel" and name is not None:
+            s["kernels"][name] += 1
+            s["runs"].append((name, *s["intervals"][-1]))
+    return streams
+
+
+def merged_us(intervals) -> list:
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def busy_and_overlap_ms(streams) -> tuple:
+    """(ms in which some stream of ``streams`` was active, ms in which two
+    or more were) over a trace's streams."""
+    edges = sorted((t, d) for s in streams.values()
+                   for a, b in merged_us(s["intervals"])
+                   for t, d in ((a, 1), (b, -1)))
+    busy = over = 0.0
+    active, last = 0, None
+    for t, d in edges:
+        if last is not None:
+            busy += (t - last) if active >= 1 else 0.0
+            over += (t - last) if active >= 2 else 0.0
+        active, last = active + d, t
+    return busy / 1e3, over / 1e3
+
+
+def concurrent_runs(streams, names) -> int:
+    """Pairs of kernels of ``names`` on two different streams that ran at
+    once (overlapping intervals)."""
+    runs = sorted((a, b, sid) for sid, s in streams.items()
+                  for n, a, b in s["runs"] if n in names)
+    pairs = 0
+    for i, (a, b, sid) in enumerate(runs):
+        for a2, _, sid2 in runs[i + 1:]:
+            if a2 >= b:
+                break
+            pairs += sid2 != sid
+    return pairs
 
 
 def unsharded_chain(movie, frame_fn, capacity: int, dev):
@@ -3268,7 +3401,8 @@ def unsharded_chain(movie, frame_fn, capacity: int, dev):
 class ParallelRun:
     """What the "parallel" phase's steps share: the card's line, the
     device, the virtual mesh's devices, the host synchronisations counted
-    by path and the launches by path."""
+    by path, the launches by path, the shard bodies' host seconds by path
+    and the streams-form mesh of each path run in its two forms."""
     card: str
     dev: "object"
     shards: int
@@ -3277,6 +3411,8 @@ class ParallelRun:
         default_factory=collections.Counter)
     launches: dict = dataclasses.field(default_factory=dict)
     blur_forms: dict = dataclasses.field(default_factory=dict)
+    body_seconds: dict = dataclasses.field(default_factory=dict)
+    meshes: dict = dataclasses.field(default_factory=dict)
 
     @property
     def on_card(self) -> bool:
@@ -3286,31 +3422,125 @@ class ParallelRun:
     def devs(self) -> list:
         return [self.dev] * self.shards
 
-    def run(self, name: str, fn, targets):
+    def run(self, name: str, fn, targets, mode: str = "error"):
         """(result, seconds) of ``fn()`` with the counters zeroed before and
-        read after into ``launches[name]``, its host synchronisations
-        counted inside ``targets`` (the path's shard bodies)."""
+        read after into ``launches[name]``, the path's shard bodies
+        (``targets``) under ``set_sync_debug_mode(mode)`` (see
+        :func:`count_syncs`) and timed into ``body_seconds[name]``."""
         import tissue_image_processing_tpu_torch as tipt
 
         tipt.reset_launches()
+        seconds = self.body_seconds.setdefault(name, [])
         with count_syncs(self.syncs, self.sync_sites, name,
-                         targets if self.on_card else []):
+                         targets if self.on_card else [], mode, seconds):
             out, secs = synced_seconds(fn, self.dev)
         self.launches[name] = {k: v for k, v in tipt.LAUNCHES.items() if v}
         self.blur_forms[name] = {k: v for k, v in
                                  tipt._device.BLUR_FORMS.items() if v}
         return out, secs
 
+    def forms(self, name: str, mesh, build, call, targets):
+        """``call(build(m))`` for ``m`` = ``mesh`` in each of its forms:
+        serial (the caller's stream) and streams (a stream a position).
+        Each is warmed by one call, then both run by :meth:`run` in turns
+        (serial, streams, streams, serial, serial, streams) as
+        ``name_serial`` and ``name``. Every result must equal the first
+        streams run's bit for bit, and every run's launches its launches.
+        Returns (the streams form's result, its function, {form: [seconds
+        of its three runs]})."""
+        forms = ("serial", "streams")
+        fns = {}
+        for form in forms:
+            m = dataclasses.replace(mesh, _form=form)
+            fns[form] = build(m)
+            call(fns[form])   # warm: libraries, streams, plans, allocator
+            if form == "streams":
+                self.meshes[name] = m
+        runs = []
+        for form in forms + forms[::-1] + forms:
+            key = name if form == "streams" else f"{name}_{form}"
+            out, secs = self.run(key, lambda: call(fns[form]), targets)
+            runs.append((form, out, secs, self.launches[key],
+                         self.blur_forms[key]))
+        _, want, _, launches, blur_forms = runs[1]
+        for form, out, _, got, got_forms in runs:
+            assert same(out, want), \
+                f"{name}: the {form} form differs from the streams form"
+            assert (got, got_forms) == (launches, blur_forms), (name, form)
+        self.launches[name], self.blur_forms[name] = launches, blur_forms
+        del self.launches[f"{name}_serial"], self.blur_forms[f"{name}_serial"]
+        secs = {form: [s for f, _, s, _, _ in runs if f == form]
+                for form in forms}
+        return want, fns["streams"], secs
+
+
+def forms_line(T: int, secs: dict) -> str:
+    """Frames/s of each form's runs, in the order they ran."""
+    return ", ".join(f"{form} " + " / ".join(f"{T / s:.3f}" for s in runs)
+                     + " frames/s (" + " / ".join(f"{s:.3f}" for s in runs)
+                     + " s)" for form, runs in secs.items())
+
+
+def trace_positions(par: ParallelRun, name: str, fn) -> None:
+    """One run of ``fn`` (the streams form of path ``name``) under the
+    profiler: the hand-written kernels ran on ``shards`` streams, none
+    elsewhere, each stream carrying one shard's launches (the same count of
+    each kernel) and all of them the path's launches; prints the device
+    ms on those streams that overlap, the busy share of the traced wall,
+    the host seconds to queue each position's body (the untraced streams
+    run, by position) against each position stream's device seconds (the
+    trace names streams by its own ids, so the two lists are not paired),
+    and whether two cooperative kernels ever ran at once on two streams."""
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=build, prefix="smoke_trace_") as d:
+        path = str(Path(d) / "trace.json")
+        _, _, wall_ms, _ = device_profile(fn, rows=True, trace=path)
+        streams = stream_activity(path, handwritten_kernels())
+    carrying = {s: v for s, v in streams.items() if v["kernels"]}
+    counts = [dict(v["kernels"]) for v in carrying.values()]
+    assert len(carrying) == par.shards, \
+        f"hand-written kernels on {len(carrying)} streams: {counts}"
+    assert all(c == counts[0] for c in counts), counts
+    launched = sum(par.launches[name].values())
+    assert sum(sum(c.values()) for c in counts) == launched, (counts, launched)
+    busy, overlapped = busy_and_overlap_ms(streams)
+    on_positions = busy_and_overlap_ms(carrying)
+    mesh = par.meshes[name]
+    position_of = {st.cuda_stream: pos for pos, st in mesh._streams.items()}
+    host = {position_of[h]: s for body, h, s in par.body_seconds[name]
+            if body == "_shard_frames"}
+    device = {sid: sum(b - a for a, b in merged_us(v["intervals"])) / 1e6
+              for sid, v in sorted(carrying.items())}
+    # cooperative launches fill the card: do two on two streams run at once?
+    coop = concurrent_runs(carrying, ("diffusion_kernel", "settle_kernel"))
+    print(f"parallel: traced {name} run (streams form, {par.shards} "
+          f"positions): hand-written kernels on {len(carrying)} position "
+          f"streams, {counts[0]} each, none on another stream; device busy "
+          f"{busy:.3f} ms of {wall_ms:.3f} ms traced wall ({busy / wall_ms:.3f} "
+          f"share), overlapped (two or more streams at once) {overlapped:.3f} "
+          f"ms, on the position streams {on_positions[1]:.3f} ms overlapped "
+          f"of {on_positions[0]:.3f} ms busy; host seconds to queue a shard "
+          f"body (untraced run) by position "
+          f"{ {p: round(s, 4) for p, s in sorted(host.items())} }, device "
+          f"seconds by position stream (trace ids) "
+          f"{ {k: round(v, 4) for k, v in device.items()} }: host / device "
+          f"{min(host.values()) / max(device.values()):.2f}x at least; "
+          f"cooperative kernels (diffusion, settle) on two streams at once: "
+          f"{coop} pairs; the trace step {time.perf_counter() - t0:.1f} s; "
+          f"on {par.card}")
+
 
 def parallel_frames(par: ParallelRun, movie, unet_depth: int,
                     unet_filters: int, capacity: int, block_size: int,
                     min_cells: int, min_unet_cells: int) -> None:
     """Steps 1-3 of the "parallel" phase: the frame-sharded watershed, its
-    chunked form from a ``MovieStore`` and the frame-sharded U-Net, each
-    against the unsharded chain on the same device."""
+    chunked form from a ``MovieStore`` and the frame-sharded U-Net, each in
+    its two forms (serial, streams: bit for bit equal) against
+    the unsharded chain on the same device; then both pipelines on a mesh
+    of every visible card where there are two or more."""
     import os
-    import tempfile
-    from pathlib import Path
 
     import torch
 
@@ -3318,7 +3548,6 @@ def parallel_frames(par: ParallelRun, movie, unet_depth: int,
     from tissue_image_processing_tpu_torch.io.movie import MovieStore
     from tissue_image_processing_tpu_torch.models.predictor import (
         find_desired_shape, unet_postprocess)
-    from tissue_image_processing_tpu_torch.models.unet import UNet
     from tissue_image_processing_tpu_torch.ops.brightness import (
         normalize_channel)
     from tissue_image_processing_tpu_torch.ops.watershed import (
@@ -3329,14 +3558,15 @@ def parallel_frames(par: ParallelRun, movie, unet_depth: int,
 
     dev, shards, card = par.dev, par.shards, par.card
     T, _, Z, H, W = movie.shape
-    bodies = [(ppipe, "_map_frames"), (ppipe, "_shifts")]
+    bodies = [(ppipe, "_shard_frames"), (ppipe, "_shifts")]
+    marks = [("start", time.perf_counter())]
 
-    # 1. the frame-sharded watershed
+    # 1. the frame-sharded watershed, in its two forms
     kw = dict(capacity=capacity, block_size=block_size)
     fmesh = ppipe.make_frame_mesh(shards, devices=par.devs)
-    pipe = ppipe.sharded_movie_pipeline(fmesh, **kw)
-    pipe(movie)   # warm: library loads, cuFFT plans, allocator
-    ids, secs = par.run("watershed", lambda: pipe(movie), bodies)
+    ids, pipe, secs = par.forms(
+        "watershed", fmesh, lambda m: ppipe.sharded_movie_pipeline(m, **kw),
+        lambda p: p(movie), bodies)
     if par.on_card:
         got = par.launches["watershed"]
         missing = [k for k in WATERSHED_KERNELS if not got.get(k)]
@@ -3363,15 +3593,20 @@ def parallel_frames(par: ParallelRun, movie, unet_depth: int,
     assert torch.equal(ids, want), "sharded watershed ids differ from the chain"
     assert int((ids > 0).sum(1).min()) > min_cells, "too few tracked cells"
     print(f"parallel: sharded_movie_pipeline {T} x {H}^2 Z={Z} over "
-          f"{shards} frame shards: ids equal to the unsharded chain; "
-          f"{T / secs:.3f} frames/s sharded ({secs:.3f} s), "
-          f"{T / secs1:.3f} frames/s unsharded chain ({secs1:.3f} s), same "
-          f"host clock, synchronised, on {card}; launches "
-          f"{par.launches['watershed']}")
+          f"{shards} frame shards: ids of the serial and streams "
+          f"forms equal bit for bit and equal to the unsharded chain; "
+          f"{forms_line(T, secs)}; {T / secs1:.3f} frames/s unsharded chain "
+          f"({secs1:.3f} s); same host clock, synchronised, on {card}; "
+          f"launches {par.launches['watershed']}")
+    marks.append(("watershed", time.perf_counter()))
+    if par.on_card:
+        trace_positions(par, "watershed", lambda: pipe(movie))
+    marks.append(("trace", time.perf_counter()))
 
-    # 2. chunked, from a MovieStore under build/
+    # 2. chunked, from a MovieStore under build/, concurrent and serial
     build = Path(__file__).resolve().parent / "build"
     build.mkdir(exist_ok=True)
+    serial = dataclasses.replace(fmesh, _form="serial")
     with tempfile.TemporaryDirectory(dir=build, prefix="smoke_parallel_") as d:
         path = os.path.join(d, "movie.npy")
         store = MovieStore.create(path, movie.shape, movie.dtype)
@@ -3381,11 +3616,14 @@ def parallel_frames(par: ParallelRun, movie, unet_depth: int,
         del store
         store = MovieStore.open(path)
         seen = []
-        got = ppipe.sharded_movie_pipeline_chunked(
+        got, _ = par.run("chunked", lambda: ppipe.sharded_movie_pipeline_chunked(
             fmesh, store, chunk_frames=shards, on_chunk=lambda t0, i: seen.append(
-                (t0, i.shape[0])), **kw)
+                (t0, i.shape[0])), **kw), bodies)
         assert np.array_equal(got, ids.cpu().numpy()), "chunked ids differ"
         assert seen == [(t, shards) for t in range(0, T, shards)], seen
+        assert np.array_equal(ppipe.sharded_movie_pipeline_chunked(
+            serial, store, chunk_frames=shards, **kw), got), \
+            "chunked ids: the serial form differs"
         cut = MovieStore(np.asarray(store.data[:T - 2]))
         seen = []
         got = ppipe.sharded_movie_pipeline_chunked(
@@ -3396,22 +3634,18 @@ def parallel_frames(par: ParallelRun, movie, unet_depth: int,
         assert seen == [(t0, min(shards, T - 2 - t0))
                         for t0 in range(0, T - 2, shards)], seen
         del store, cut
+    marks.append(("chunked", time.perf_counter()))
     print(f"parallel: sharded_movie_pipeline_chunked from a MovieStore: chunk "
-          f"{shards} == unchunked; chunk {shards} on a T={T - 2} cut (padded "
-          f"tail) == the first {T - 2} frames; on_chunk saw {seen}")
+          f"{shards} == unchunked, streams form == serial form; chunk "
+          f"{shards} on a T={T - 2} cut (padded tail) == the first {T - 2} "
+          f"frames; on_chunk saw {seen}")
 
-    # 3. the frame-sharded U-Net
-    cfg, share = random_unet_config(movie[0], depth=unet_depth,
-                                    base_filters=unet_filters, batch=8,
-                                    device=dev.type)
-    with torch.device(dev):
-        model = UNet(depth=unet_depth, base_filters=unet_filters,
-                     dtype=torch.bfloat16, norm=cfg["norm"])
-    model.load_state_dict(cfg["params"])
-    model.eval().requires_grad_(False)
-    upipe = ppipe.sharded_unet_pipeline(fmesh, model, capacity=capacity)
-    upipe(cfg["params"], movie)   # warm: cuDNN plans
-    uids, usecs = par.run("unet", lambda: upipe(cfg["params"], movie), bodies)
+    # 3. the frame-sharded U-Net, in its two forms
+    model, cfg, share = unet_model(movie, dev, unet_depth, unet_filters)
+    uids, _, usecs = par.forms(
+        "unet", fmesh,
+        lambda m: ppipe.sharded_unet_pipeline(m, model, capacity=capacity),
+        lambda p: p(cfg["params"], movie), bodies)
 
     def unet_frame(stack):
         proj, _ = time_point_surface_projection(stack.to(torch.float32),
@@ -3435,16 +3669,112 @@ def parallel_frames(par: ParallelRun, movie, unet_depth: int,
         assert not par.launches["unet"].get("diffusion_bf"), par.launches["unet"]
     print(f"parallel: sharded_unet_pipeline depth {unet_depth}, "
           f"{unet_filters} filters, bfloat16 (p0 > 0.1 on {share:.3f} of frame "
-          f"0) over {shards} frame shards: ids equal to the unsharded chain; "
-          f"{T / usecs:.3f} frames/s sharded, {T / usecs1:.3f} unsharded, on "
-          f"{card}; launches {par.launches['unet']}")
+          f"0) over {shards} frame shards: ids of the two forms equal bit "
+          f"for bit and equal to the unsharded chain; {forms_line(T, usecs)}; "
+          f"{T / usecs1:.3f} frames/s unsharded ({usecs1:.3f} s), on {card}; "
+          f"launches {par.launches['unet']}")
+
+    marks.append(("unet", time.perf_counter()))
+
+    # 4. every visible card, where there are two or more
+    parallel_cards(par, movie, kw, ids, model, cfg["params"], uids)
+    marks.append(("cards", time.perf_counter()))
+    print("parallel: steps 1-4 seconds: " + ", ".join(
+        f"{b[0]} {b[1] - a[1]:.1f}" for a, b in zip(marks, marks[1:])))
+
+
+def unet_model(movie, dev, depth: int, filters: int):
+    """(model, config, share): a bfloat16 U-Net with seeded random weights
+    on ``dev`` (``random_unet_config`` on the movie's first frame)."""
+    import torch
+
+    from tissue_image_processing_tpu_torch.models.unet import UNet
+
+    cfg, share = random_unet_config(movie[0], depth=depth,
+                                    base_filters=filters, batch=8,
+                                    device=dev.type)
+    with torch.device(dev):
+        model = UNet(depth=depth, base_filters=filters, dtype=torch.bfloat16,
+                     norm=cfg["norm"])
+    model.load_state_dict(cfg["params"])
+    model.eval().requires_grad_(False)
+    return model, cfg, share
+
+
+def parallel_cards(par: ParallelRun, movie, kw: dict, ids, model, params,
+                   uids) -> None:
+    """The frame-sharded watershed (``kw``: its capacity and block size)
+    and U-Net (``model`` with ``params``) on a mesh of every visible card,
+    in both forms (:meth:`ParallelRun.forms`), their ids equal to ``ids``
+    / ``uids`` of the one-card virtual mesh and their launches equal;
+    where fewer than two cards are visible, one line saying so."""
+    import torch
+
+    from tissue_image_processing_tpu_torch.parallel import pipeline as ppipe
+
+    T = movie.shape[0]
+    cards = torch.cuda.device_count() if par.on_card else 0
+    if cards < 2:
+        print(f"parallel: the watershed and U-Net pipelines on a mesh of "
+              f"every visible card were not run: {cards} card(s) visible")
+        return
+    n = max(c for c in range(1, cards + 1) if T % c == 0)
+    cmesh = ppipe.make_frame_mesh(n, devices=[torch.device("cuda", i)
+                                              for i in range(n)])
+    bodies = [(ppipe, "_shard_frames"), (ppipe, "_shifts")]
+    for path, want_ids, build, args in (
+            ("watershed", ids,
+             lambda m: ppipe.sharded_movie_pipeline(m, **kw), (movie,)),
+            ("unet", uids, lambda m: ppipe.sharded_unet_pipeline(
+                m, model, capacity=kw["capacity"]), (params, movie))):
+        got, _, csecs = par.forms(f"{path}_cards", cmesh, build,
+                                  lambda p: p(*args), bodies)
+        assert same(got, want_ids), f"{path}: ids on {n} cards differ"
+        assert par.launches[f"{path}_cards"] == par.launches[path], \
+            (par.launches[f"{path}_cards"], par.launches[path])
+        print(f"parallel: {path} on a mesh of {n} cards ({cards} visible): "
+              f"ids of both forms equal to the one-card run, launches "
+              f"equal; {forms_line(T, csecs)} on {par.card}")
+
+
+def check_cards(card: str, movie, shards: int = 4, capacity: int = 1024,
+                block_size: int = 101, unet_depth: int = 3,
+                unet_filters: int = 128) -> None:
+    """The frame-sharded watershed and U-Net on a virtual mesh of
+    ``shards`` positions on card 0 (both forms, shard bodies under
+    ``set_sync_debug_mode("error")``), then on a mesh of every visible card
+    against them (:func:`parallel_cards`): step 4 of the "parallel" phase
+    and what it is compared with, alone, for a machine with several
+    cards."""
+    import torch
+
+    from tissue_image_processing_tpu_torch.parallel import pipeline as ppipe
+
+    par = ParallelRun(card, torch.device("cuda"), shards)
+    kw = dict(capacity=capacity, block_size=block_size)
+    fmesh = ppipe.make_frame_mesh(shards, devices=par.devs)
+    bodies = [(ppipe, "_shard_frames"), (ppipe, "_shifts")]
+    model, cfg, _ = unet_model(movie, par.dev, unet_depth, unet_filters)
+    got = {}
+    for path, build, args in (
+            ("watershed", lambda m: ppipe.sharded_movie_pipeline(m, **kw),
+             (movie,)),
+            ("unet", lambda m: ppipe.sharded_unet_pipeline(
+                m, model, capacity=capacity), (cfg["params"], movie))):
+        got[path], _, secs = par.forms(path, fmesh, build,
+                                       lambda p: p(*args), bodies)
+        print(f"parallel: {path} over {shards} positions of card 0: "
+              f"{forms_line(movie.shape[0], secs)} on {card}")
+    parallel_cards(par, movie, kw, got["watershed"], model, cfg["params"],
+                   got["unet"])
 
 
 def parallel_space(par: ParallelRun, movie) -> dict:
     """Step 4 of the "parallel" phase: ``sharded_projection`` of two frames
-    tiled 2 x 2 over (frame, y, x) = (1, 2, 2) and (2, 2, 1) against the
-    unsharded precise projection, and ``blur3d`` at every shard shape on
-    its input. Returns the blur rows by name (on the card)."""
+    tiled 2 x 2 over (frame, y, x) = (1, 2, 2) and (2, 2, 1) in its two
+    forms (bit for bit equal) against the unsharded precise projection,
+    and ``blur3d`` at every shard shape on its input. Returns the blur rows
+    by name (on the card)."""
     import torch
 
     from tissue_image_processing_tpu_torch.ops.filters import gaussian_blur
@@ -3489,14 +3819,16 @@ def parallel_space(par: ParallelRun, movie) -> dict:
     for f_sh, y_sh, x_sh in ((1, 2, 2), (2, 2, 1)):
         smesh = pspat.make_space_mesh(shards, frame_shards=f_sh,
                                       x_shards=x_sh, devices=par.devs)
-        proj_fn = pspat.sharded_projection(smesh, airyscan=False)
         tag = f"{y_sh}x{x_sh}"
         want_shapes = {v for k, v in shapes.items() if k.endswith(tag)}
         with capture_blur_inputs(want_shapes) as captured:
-            proj_fn(big)   # warm, and the blur inputs at the shard shapes
+            # the blur inputs at the shard shapes
+            pspat.sharded_projection(smesh, airyscan=False)(big)
         captured_all.update(captured)
-        (p, z), ssecs = par.run(f"spatial_{tag}", lambda: proj_fn(big),
-                                [(pspat, "_project_block")])
+        (p, z), _, ssecs = par.forms(
+            f"spatial_{tag}", smesh,
+            lambda m: pspat.sharded_projection(m, airyscan=False),
+            lambda fn: fn(big), [(pspat, "_project_block")])
         # one launch at each shape a frame and space shard
         shard_launches.update({s: 2 * y_sh * x_sh for s in want_shapes})
         if par.on_card:
@@ -3539,8 +3871,12 @@ def parallel_space(par: ParallelRun, movie) -> dict:
                   f" {int(off.any(0).sum())} pixels outside the class within "
                   f"their reach (max_abs_err {max_abs_err(gp, want_p[t]):.3g})")
         print(f"parallel: sharded_projection over ({f_sh}, {y_sh}, {x_sh}): "
-              f"{ssecs:.3f} s for 2 frames of {side}^2, upload included, on "
-              f"{card}; launches {par.launches[f'spatial_{tag}']}")
+              f"projections and z-maps of the serial and streams "
+              f"forms equal bit for bit; for 2 frames of {side}^2, upload "
+              f"included: "
+              + ", ".join(f"{form} " + " / ".join(f"{s:.3f}" for s in runs)
+                          + " s" for form, runs in ssecs.items())
+              + f", on {card}; launches {par.launches[f'spatial_{tag}']}")
         del p, z
     del big
     rows = {}
@@ -3682,7 +4018,7 @@ def parallel_training(par: ParallelRun, filters: int, batch: int,
         for _ in range(10):
             losses.append(holder.step(sstate, xs, by)[1])
 
-    _, tsecs = par.run("train", ten_sharded, [(holder, "step")])
+    _, tsecs = par.run("train", ten_sharded, [(holder, "step")], mode="warn")
     assert all(bool(torch.isfinite(loss)) for loss in losses)
     del net, state, tx, sstate, holder, xs
     ref_net, ref_state, ref_tx = fresh(torch.bfloat16)
@@ -3737,21 +4073,36 @@ def check_parallel(card: str, movie, device: str = "cuda", shards: int = 4,
                    block_size: int = 101, min_cells: int = 200,
                    min_unet_cells: int = 10):
     """The "parallel" phase: ``parallel/`` on virtual meshes of ``shards``
-    positions on one device (``devices=[torch.device("cuda")] * shards``).
-    On one card the shards run one after the other on its stream: the
-    frames/s say what the mesh costs, not what it scales to.
+    positions on one device (``devices=[torch.device("cuda")] * shards``),
+    each position with a CUDA stream of its own, so that they overlap on
+    the one card as they would on separate cards. The shard bodies of the
+    four sharded paths (``pipeline._shard_frames``, ``_shifts``,
+    ``spatial._project_block``) run under
+    ``torch.cuda.set_sync_debug_mode("error")``: a host synchronisation in
+    one fails the run. Each path runs in its two forms (serial: the
+    caller's stream; streams: a stream a position), equal bit for bit.
 
     1. ``sharded_movie_pipeline`` on the raw headline movie (capacity 1024,
        block 101): ids equal to the unsharded chain's on the card; the
        unfused projection's blurs, the diffusions, the settle and its mask
-       launched, the fused projection kernels not; frames/s of both;
+       launched, the fused projection kernels not; frames/s of the two
+       forms and the chain; one run of the streams form traced: the
+       hand-written kernels on ``shards`` position streams, each carrying
+       one shard's launches, none on another stream; the overlapped device
+       ms, the busy share, and by position the host seconds to queue its
+       body against its stream's device seconds;
     2. ``sharded_movie_pipeline_chunked`` fed from an ``io/movie.MovieStore``
        of the movie under ``build/`` (removed at the end): chunk 4 equal to
-       the unchunked ids, and chunk 4 on a T=6 cut (a padded tail chunk)
-       equal to their first 6 frames; ``on_chunk`` sees real frames only;
+       the unchunked ids and to the serial form, and chunk 4 on a T=6 cut (a
+       padded tail chunk) equal to their first 6 frames; ``on_chunk`` sees
+       real frames only;
     3. ``sharded_unet_pipeline`` at depth 3 / 128 filters / bfloat16 with
        ``utils/synthetic.py:random_unet`` weights: ids equal to the
-       per-frame unsharded chain; ``cc_scan`` launched;
+       per-frame unsharded chain; ``cc_scan`` launched; frames/s of the
+       two forms; then, where two or more cards are visible, the
+       watershed and U-Net pipelines on a mesh of every card in both forms
+       (ids equal to the one-card run), else one line saying they were
+       not run;
     4. ``sharded_projection`` of two frames tiled 2 x 2 to 2048^2 over
        (frame, y, x) = (1, 2, 2) and (2, 2, 1) against
        ``time_point_surface_projection(precise=True)``: the clip value
@@ -3768,30 +4119,44 @@ def check_parallel(card: str, movie, device: str = "cuda", shards: int = 4,
        CPU tests' tolerances but for the gradients, whose difference is
        printed beside the unsharded step's own run-to-run spread; one
        float64 step on 8 crops within all of them; then 10 bfloat16 steps
-       of each (steps/s);
+       of each (steps/s); its host synchronisations counted
+       (``set_sync_debug_mode("warn")``), not a gate;
     6. the card against the CPU on the CPU tests' tiny shapes;
-    7. the host synchronisations inside the shard bodies of each path
-       (``torch.cuda.set_sync_debug_mode("warn")``), printed, not a gate.
+    7. the host synchronisations counted by path, printed (0 in the four
+       sharded paths, or the run has failed).
 
     ``device`` and the sizes exist for a dry run on the CPU (no launch,
-    timing or synchronisation counts there, no step 6). Returns (launches
-    by path, blur3d shard rows)."""
+    timing or synchronisation checks there, no trace, no step 6; both
+    forms run on the CPU's one queue). Returns (launches by path, blur3d
+    shard rows)."""
     import torch
 
     t_phase = time.perf_counter()
     par = ParallelRun(card, torch.device(device), shards)
     print(f"parallel: torch.cuda.device_count() = {torch.cuda.device_count()}"
           f"; virtual meshes of {shards} positions on {par.dev}")
-    parallel_frames(par, movie, unet_depth, unet_filters, capacity,
-                    block_size, min_cells, min_unet_cells)
-    rows = parallel_space(par, movie)
-    parallel_training(par, train_filters, train_batch, train_side)
+    steps = {}
+
+    def step(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        steps[name] = round(time.perf_counter() - t0, 1)
+        return out
+
+    step("frames", parallel_frames, par, movie, unet_depth, unet_filters,
+         capacity, block_size, min_cells, min_unet_cells)
+    rows = step("space", parallel_space, par, movie)
+    step("training", parallel_training, par, train_filters, train_batch,
+         train_side)
     if par.on_card:
-        parallel_card_vs_cpu(par)
+        step("card_vs_cpu", parallel_card_vs_cpu, par)
         print(f"parallel: host synchronisations inside the shard bodies "
-              f"(set_sync_debug_mode warn; tracker excluded): {par.syncs}; "
-              f"by source line: {dict(par.sync_sites.most_common())}")
-    print(f"parallel: phase {time.perf_counter() - t_phase:.1f} s on {card}")
+              f"(set_sync_debug_mode error in the sharded paths, a sync "
+              f"fails the run; warn in the train step; tracker excluded): "
+              f"{par.syncs}; by source line: "
+              f"{dict(par.sync_sites.most_common())}")
+    print(f"parallel: phase {time.perf_counter() - t_phase:.1f} s on {card} "
+          f"(seconds by step: {steps})")
     return par.launches, rows
 
 
@@ -3811,9 +4176,18 @@ def zipfile_contents(path: str) -> dict:
         return {n: z.read(n) for n in z.namelist()}
 
 
-def main() -> int:
+def main(argv=()) -> int:
+    """Every phase (no arguments); with ``parallel`` the build and the
+    "parallel" phase alone, with ``cards`` the build and that phase's mesh
+    of every visible card with the one-card runs it is held to
+    (:func:`check_cards`), each without the kernel table and the last
+    line."""
     import torch
 
+    if list(argv) not in ([], ["parallel"], ["cards"]):
+        print("usage: python3 chip_smoke.py [parallel | cards]",
+              file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
@@ -3832,6 +4206,11 @@ def main() -> int:
     from tissue_image_processing_tpu_torch.core.pipeline import _reference_frames
     from tissue_image_processing_tpu_torch.utils.synthetic import make_movie
 
+    if argv:
+        movie = make_movie(T=8, Z=30, H=1024, W=1024, seed=0).astype(np.uint16)
+        (check_parallel if argv == ["parallel"] else check_cards)(card, movie)
+        print(card_line())
+        return 0
     frames = _reference_frames(make_movie(T=2, Z=1, H=1024, W=1024, seed=2),
                                0, torch.device("cuda"))
     rows = check_kernels(frames)
@@ -3962,4 +4341,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

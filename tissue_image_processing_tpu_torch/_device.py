@@ -11,6 +11,11 @@ to ``BLUR_LAUNCHES[(Z, Y, X, tz, ty, tx)]`` and ``BLUR_FORMS[form]``, and
 the int8 conv, which has three forms, to ``CONV_LAUNCHES[form]``.
 ``reset_launches()`` zeroes the counts so a caller can show that a run went
 through the kernels.
+
+:func:`launch` runs a kernel under its tensor's device, on that device's
+current stream, so a shard on any card of a mesh launches there. A caller
+may launch from several host threads: :func:`count_launch` adds under a
+lock, and libraries are built and loaded under another.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ import ctypes
 import hashlib
 import os
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, Iterable, Optional, Union
 
@@ -27,8 +33,9 @@ import torch
 
 __all__ = ["LAUNCHES", "BLUR_LAUNCHES", "BLUR_FORMS", "CONV_LAUNCHES",
            "KERNEL_SOURCES", "resolve_device", "build_kernels", "load_library",
-           "reset_launches", "check_cuda", "ptr", "stream_ptr",
-           "require_cuda_tensor", "host_to_device", "host_floats", "to_host"]
+           "reset_launches", "count_launch", "check_cuda", "launch", "ptr",
+           "stream_ptr", "require_cuda_tensor", "host_to_device",
+           "host_constant", "host_floats", "to_host"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 DEFAULT_BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
@@ -48,7 +55,11 @@ BLUR_LAUNCHES: collections.Counter = collections.Counter()
 BLUR_FORMS: collections.Counter = collections.Counter()
 # conv3x3_s8 launches by form ("tensor_core", "first_conv", "generic")
 CONV_LAUNCHES: collections.Counter = collections.Counter()
+_COUNT_LOCK = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_BUILD_LOCK = threading.RLock()
+# host constants' copies on the card by (key, device, stream)
+_constants: Dict[tuple, torch.Tensor] = {}
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
@@ -72,21 +83,37 @@ def host_to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
     return t.pin_memory().to(device, non_blocking=True)
 
 
+def host_constant(key, make, device: torch.device) -> torch.Tensor:
+    """``make()`` (a host tensor) on ``device``, made and copied once per
+    ``key``, device and stream (:func:`host_to_device`: no host
+    synchronisation). Keyed by the stream too, so a stream never reads a
+    copy still in flight on another."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return make().to(device)
+    slot = (key, device, torch.cuda.current_stream(device).cuda_stream)
+    t = _constants.get(slot)
+    if t is None:
+        t = _constants[slot] = host_to_device(make(), device)
+    return t
+
+
 def to_host(*tensors: torch.Tensor) -> list:
-    """numpy copies of ``tensors`` through ONE synchronisation: each card
-    tensor is copied without blocking into a pinned buffer, then the
-    current stream is synchronised once (a CPU tensor is read as it is)."""
-    bufs, synced = [], False
+    """numpy copies of ``tensors`` through ONE synchronisation a device:
+    each card tensor is copied without blocking into a pinned buffer on its
+    device's current stream, then each of those streams is synchronised
+    once (a CPU tensor is read as it is)."""
+    bufs, streams = [], {}
     for t in tensors:
         if t.device.type == "cuda":
             buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
             buf.copy_(t, non_blocking=True)
             bufs.append(buf)
-            synced = True
+            streams[t.device] = torch.cuda.current_stream(t.device)
         else:
             bufs.append(t)
-    if synced:
-        torch.cuda.current_stream().synchronize()
+    for stream in streams.values():
+        stream.synchronize()
     return [b.numpy() for b in bufs]
 
 
@@ -98,11 +125,22 @@ def host_floats(values: Iterable[float]) -> ctypes.Array:
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-    BLUR_LAUNCHES.clear()
-    BLUR_FORMS.clear()
-    CONV_LAUNCHES.clear()
+    with _COUNT_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+        BLUR_LAUNCHES.clear()
+        BLUR_FORMS.clear()
+        CONV_LAUNCHES.clear()
+
+
+def count_launch(name: str, n: int = 1, *by) -> None:
+    """Add ``n`` launches of kernel ``name`` to ``LAUNCHES`` and to each
+    ``(counter, key)`` pair of ``by`` (``BLUR_FORMS``, ...), under one lock,
+    so that launches from several host threads all count."""
+    with _COUNT_LOCK:
+        LAUNCHES[name] += n
+        for counter, key in by:
+            counter[key] += n
 
 
 def _nvcc() -> str:
@@ -124,6 +162,11 @@ def build_kernels(names: Iterable[str] = KERNEL_SOURCES) -> None:
     per source, all started together. Raises with the compiler's output if
     any build fails; the compiler log (``-Xptxas -v``: registers, shared
     memory, spills) is kept beside each library."""
+    with _BUILD_LOCK:
+        _build(names)
+
+
+def _build(names: Iterable[str]) -> None:
     procs = []
     for name in names:
         src, out = _paths(name)
@@ -151,16 +194,20 @@ def load_library(name: str, signatures: Dict[str, tuple]) -> ctypes.CDLL:
     exported C function to its ctypes argument types (all return int, the
     ``cudaError_t`` of the launch)."""
     lib = _libs.get(name)
-    if lib is None:
-        build_kernels([name])
-        lib = ctypes.CDLL(str(_paths(name)[1]))
-        for fn, argtypes in signatures.items():
-            f = getattr(lib, fn)
-            f.argtypes = list(argtypes)
-            f.restype = ctypes.c_int
-        lib.kernel_error_string.argtypes = [ctypes.c_int]
-        lib.kernel_error_string.restype = ctypes.c_char_p
-        _libs[name] = lib
+    if lib is not None:
+        return lib
+    with _BUILD_LOCK:
+        lib = _libs.get(name)
+        if lib is None:
+            _build([name])
+            lib = ctypes.CDLL(str(_paths(name)[1]))
+            for fn, argtypes in signatures.items():
+                f = getattr(lib, fn)
+                f.argtypes = list(argtypes)
+                f.restype = ctypes.c_int
+            lib.kernel_error_string.argtypes = [ctypes.c_int]
+            lib.kernel_error_string.restype = ctypes.c_char_p
+            _libs[name] = lib
     return lib
 
 
@@ -174,8 +221,20 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def stream_ptr() -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+def stream_ptr(device: torch.device) -> ctypes.c_void_p:
+    """The current stream of ``device`` (a card), as a C pointer."""
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def launch(lib: ctypes.CDLL, entry, device: torch.device, what: str,
+           *args) -> None:
+    """``entry(*args, stream)``: a kernel launch through a C entry of
+    ``lib`` on ``device``'s current stream, with ``device`` the calling
+    thread's current device throughout (the entries size grids and read
+    occupancy from it). Raises if the launch fails."""
+    with torch.cuda.device(device):
+        rc = entry(*args, stream_ptr(device))
+    check_cuda(lib, rc, what)
 
 
 def require_cuda_tensor(t: torch.Tensor, dtype: torch.dtype, ndim: int,

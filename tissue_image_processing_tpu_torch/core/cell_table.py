@@ -216,8 +216,10 @@ def _frame_cellinfo_impl(labels, capacity, max_neighbors, min_cell_area,
                          neighbor_compact_k
                          ) -> Tuple[CellTable, torch.Tensor]:
     props = regionprops(labels, num_labels=capacity, intensity=intensity)
-    exists = props["exists"].clone()
-    exists[0] = False
+    # label 0 (background) is no cell; index_fill with an index on the
+    # device, where ``exists[0] = False`` would copy from the host and wait
+    exists = props["exists"].index_fill(
+        0, torch.zeros(1, dtype=torch.int64, device=labels.device), False)
     area = torch.where(exists, props["area"], 0.0)[1:capacity + 1]
     exists_c = exists[1:capacity + 1]
     n_cells = torch.clamp(exists_c.sum(), min=1).to(torch.float32)

@@ -85,7 +85,22 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
+
+// The library serves every card of the process, from several host threads:
+// what a launch learns from the calling thread's current card (occupancy, a
+// shared memory size opted into) is cached by card, in atomics.
+constexpr int MAX_CARDS = 64;
+
+// the calling thread's current card, or -1
+inline int current_card() {
+  int dev = -1;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= MAX_CARDS)
+    return -1;
+  return dev;
+}
 
 constexpr int kMaxTaps = 33;
 constexpr int BT_Y = 64;          // output rows of a tile
@@ -497,14 +512,16 @@ cudaError_t launch_tile(const float* x, float* out, const BlurTaps& w, int Z,
   const int ry = ty / 2, rxa = (tx / 2 + 3) & ~3;
   const size_t bytes = sizeof(float) * (size_t)(2 * BT_Y + 2 * ry) * (BT_X + 2 * rxa);
   // above 48 KB only after this; the largest tile (33 taps) needs 100 KB
-  static bool opted_in = false;
-  if (!opted_in) {
+  static std::atomic<bool> opted_in[MAX_CARDS];
+  const int dev = current_card();
+  if (dev < 0) return cudaErrorInvalidDevice;
+  if (!opted_in[dev]) {
     const int most = sizeof(float) * (2 * BT_Y + 2 * (kMaxTaps / 2)) *
                      (BT_X + 2 * ((kMaxTaps / 2 + 3) & ~3));
     const cudaError_t e = cudaFuncSetAttribute(
         blur_tile_kernel<NY, NX>, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
     if (e != cudaSuccess) return e;
-    opted_in = true;
+    opted_in[dev] = true;
   }
   dim3 grid((X + BT_X - 1) / BT_X, (Y + BT_Y - 1) / BT_Y, Z);
   blur_tile_kernel<NY, NX><<<grid, BT_THREADS, bytes, s>>>(x, out, w, Z, Y, X,
@@ -516,12 +533,13 @@ template <int TZ, int N>
 cudaError_t launch_walk(const float* x, float* out, const BlurTaps& w, int Z,
                         int Y, int X, int vec, cudaStream_t s) {
   using W = Walk<TZ, N>;
-  static int slots = 0;  // blocks the card runs at once
-  if (slots == 0) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  static std::atomic<int> slot_cache[MAX_CARDS];  // blocks a card runs at once
+  const int dev = current_card();
+  if (dev < 0) return cudaErrorInvalidDevice;
+  if (slot_cache[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    cudaError_t e =
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e == cudaSuccess)  // above 48 KB only after this
       e = cudaFuncSetAttribute(blur_walk_kernel<TZ, N>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, W::SMEM);
@@ -529,8 +547,9 @@ cudaError_t launch_walk(const float* x, float* out, const BlurTaps& w, int Z,
       e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
           &per_sm, blur_walk_kernel<TZ, N>, W::NT, W::SMEM);
     if (e != cudaSuccess) return e;
-    slots = max(1, sms * per_sm);
+    slot_cache[dev] = max(1, sms * per_sm);
   }
+  const int slots = slot_cache[dev];
   const int tiles_x = (X + BW_X - 1) / BW_X, tiles_y = (Y + BW_Y - 1) / BW_Y;
   // z chunks: a chunk reloads TZ - 1 planes; more chunks fill the last wave
   // of blocks. Cost: waves times a block's planes, a loaded-only plane

@@ -41,7 +41,22 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
+
+// The library serves every card of the process, from several host threads:
+// what a launch learns from the calling thread's current card (occupancy, a
+// shared memory size opted into) is cached by card, in atomics.
+constexpr int MAX_CARDS = 64;
+
+// the calling thread's current card, or -1
+inline int current_card() {
+  int dev = -1;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= MAX_CARDS)
+    return -1;
+  return dev;
+}
 
 // ---------------------------------------------------------------------------
 // Shared pieces.
@@ -785,6 +800,7 @@ constexpr int FC_ROWS = 4;        // image rows a block
 constexpr int FC_COLS = 64;       // pixels a row
 constexpr int FC_THREADS = 256;   // a thread a pixel while building im2col
 constexpr int FC_BN = 64;         // output channels an mma pass
+constexpr int FC_MAX_COUT = 256;  // output channels the form takes, at most
 static_assert(FC_ROWS * FC_COLS == FC_THREADS, "a thread a pixel");
 static_assert(FC_COLS % 32 == 0, "a warp owns 32 pixels of one row");
 
@@ -1005,23 +1021,25 @@ int launch_tc(const CUtensorMap& mx0, const CUtensorMap& mw0,
               const TcParams& p, cudaStream_t stream) {
   using S = TcShape<MW, BN>;
   auto kernel = conv3x3_s8_tc_kernel<MW, BN, SPLIT>;
-  static int resident = 0;  // blocks the card holds at once
-  if (resident == 0) {
+  static std::atomic<int> resident[MAX_CARDS];  // blocks a card holds at once
+  const int dev = current_card();
+  if (dev < 0) return cudaErrorInvalidDevice;
+  if (resident[dev] == 0) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM_BYTES);
     if (e != cudaSuccess) return e;
-    int dev = 0, sms = 0, per = 0;
-    if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+    int sms = 0, per = 0;
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e != cudaSuccess) return e;
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, kernel, TC_THREADS,
                                                       S::SMEM_BYTES);
     if (e != cudaSuccess) return e;
     if (sms * per <= 0) return cudaErrorInvalidConfiguration;
-    resident = sms * per;
+    resident[dev] = sms * per;
   }
+  const int held = resident[dev];
   const int units = p.tiles_n * p.B * p.tiles_h * p.tiles_w;
-  const int grid = units < resident ? units : resident;
+  const int grid = units < held ? units : held;
   kernel<<<grid, TC_THREADS, S::SMEM_BYTES, stream>>>(mx0, mw0, mx1, mw1, p);
   return cudaGetLastError();
 }
@@ -1030,12 +1048,17 @@ template <int KS>
 int launch_first(const FcParams& p, cudaStream_t stream) {
   auto kernel = conv3x3_s8_first_kernel<KS>;
   const int smem = fc_smem_bytes(KS, p.cin, p.cout);
-  static int allowed = 0;  // the dynamic shared memory the kernel may take
-  if (smem > allowed) {
+  // above 48 KB only after this: once a card, at the largest shape the
+  // form takes (Kp = 32 * KS holds 9 * cin), so the size never goes down
+  static std::atomic<bool> opted_in[MAX_CARDS];
+  const int dev = current_card();
+  if (dev < 0) return cudaErrorInvalidDevice;
+  if (!opted_in[dev]) {
+    const int most = fc_smem_bytes(KS, 32 * KS / 9, FC_MAX_COUT);
     const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
     if (e != cudaSuccess) return e;
-    allowed = smem;
+    opted_in[dev] = true;
   }
   const dim3 grid((p.W + FC_COLS - 1) / FC_COLS, (p.H + FC_ROWS - 1) / FC_ROWS,
                   p.B);
@@ -1091,7 +1114,8 @@ int conv3x3_s8(int form, const void* x0, const void* w0, int cin0, int kp0,
     return ERR_CONFIG;
   }
   if (form == FORM_FIRST_CONV) {
-    if (split || cout % FC_BN != 0 || (kp0 != 32 && kp0 != 64))
+    if (split || cout % FC_BN != 0 || cout > FC_MAX_COUT ||
+        (kp0 != 32 && kp0 != 64) || 9 * cin0 > kp0)
       return ERR_CONFIG;
     const FcParams p{static_cast<const int8_t*>(x0),
                      static_cast<const int8_t*>(w0),

@@ -111,7 +111,22 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
+
+// The library serves every card of the process, from several host threads:
+// what a launch learns from the calling thread's current card (occupancy, a
+// shared memory size opted into) is cached by card, in atomics.
+constexpr int MAX_CARDS = 64;
+
+// the calling thread's current card, or -1
+inline int current_card() {
+  int dev = -1;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= MAX_CARDS)
+    return -1;
+  return dev;
+}
 
 constexpr int BX = 32;
 constexpr int BY = 8;
@@ -289,28 +304,30 @@ template <class C>
 int launch_diffusion(C c, const typename C::Aux* aux, const int* seed,
                      typename C::T* a, int* flags, int H, int W,
                      cudaStream_t s) {
-  static int resident = 0;
+  static std::atomic<int> resident[MAX_CARDS];  // blocks a card holds at once
   if (H < 1 || W < 1 || 2LL * H * W >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
-  if (resident == 0) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int dev = current_card();
+  if (dev < 0) return (int)cudaErrorInvalidDevice;
+  if (resident[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    cudaError_t err =
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
           &per_sm, diffusion_kernel<C>, DIFF_THREADS, 0);
     if (err != cudaSuccess) return (int)err;
     if (sms * per_sm < 1) return (int)cudaErrorLaunchOutOfResources;
-    resident = sms * per_sm;
+    resident[dev] = sms * per_sm;
   }
+  const int held = resident[dev];
   const int tiles = diffusion_tiles(H, W);
   cudaError_t err =
       cudaMemsetAsync(flags, 0, (2 * tiles + 4) * sizeof(int), s);
   if (err != cudaSuccess) return (int)err;
   void* args[] = {&c, &aux, &seed, &a, &flags, &H, &W};
   return (int)cudaLaunchCooperativeKernel(
-      (void*)diffusion_kernel<C>, dim3(tiles < resident ? tiles : resident),
+      (void*)diffusion_kernel<C>, dim3(tiles < held ? tiles : held),
       dim3(DIFF_THREADS), args, 0, s);
 }
 
@@ -619,29 +636,31 @@ int settle_flag_ints(int H, int W) { return 3 * settle_tiles(H, W) + 6; }
 // of sweeps (the highest stamp given). Returns the cudaError_t of the launch.
 int settle_sweeps(const int* mask, const int* seeds, int* lbl, int* t,
                   int* flags, int H, int W, void* stream) {
-  static int resident = 0;
+  static std::atomic<int> resident[MAX_CARDS];  // blocks a card holds at once
   cudaStream_t s = (cudaStream_t)stream;
   if (H < 1 || W < 1 || (long long)H * W >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
-  if (resident == 0) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int dev = current_card();
+  if (dev < 0) return (int)cudaErrorInvalidDevice;
+  if (resident[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    cudaError_t err =
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
           &per_sm, settle_kernel, SETTLE_THREADS, 0);
     if (err != cudaSuccess) return (int)err;
     if (sms * per_sm < 1) return (int)cudaErrorLaunchOutOfResources;
-    resident = sms * per_sm;
+    resident[dev] = sms * per_sm;
   }
+  const int held = resident[dev];
   const int tiles = settle_tiles(H, W);
   cudaError_t err =
       cudaMemsetAsync(flags, 0, settle_flag_ints(H, W) * sizeof(int), s);
   if (err != cudaSuccess) return (int)err;
   void* args[] = {&mask, &seeds, &lbl, &t, &flags, &H, &W};
   return (int)cudaLaunchCooperativeKernel(
-      (void*)settle_kernel, dim3(tiles < resident ? tiles : resident),
+      (void*)settle_kernel, dim3(tiles < held ? tiles : held),
       dim3(SETTLE_THREADS), args, 0, s);
 }
 

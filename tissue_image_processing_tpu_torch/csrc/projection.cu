@@ -90,7 +90,22 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
+
+// The library serves every card of the process, from several host threads:
+// what a launch learns from the calling thread's current card (occupancy, a
+// shared memory size opted into) is cached by card, in atomics.
+constexpr int MAX_CARDS = 64;
+
+// the calling thread's current card, or -1
+inline int current_card() {
+  int dev = -1;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= MAX_CARDS)
+    return -1;
+  return dev;
+}
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
@@ -532,12 +547,14 @@ int proj_score(const uint16_t* vol, const float* p95, const float* taps,
   // the staging ring is dynamic shared memory: with the static tiles it
   // passes 48 KB, which a kernel may use only after this
   const int staged = SC_STAGES * SC_G * SC_THREADS * (int)sizeof(uint2);
-  static bool opted_in = false;
-  if (!opted_in) {
+  static std::atomic<bool> opted_in[MAX_CARDS];
+  const int dev = current_card();
+  if (dev < 0) return (int)cudaErrorInvalidDevice;
+  if (!opted_in[dev]) {
     const cudaError_t e = cudaFuncSetAttribute(
         score_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, staged);
     if (e != cudaSuccess) return (int)e;
-    opted_in = true;
+    opted_in[dev] = true;
   }
   score_kernel<<<grid, SC_THREADS, staged, (cudaStream_t)stream>>>(
       vol, p95, w, out, Z, Y, X, off, vec);

@@ -103,11 +103,11 @@ def blur3d(x: torch.Tensor, kz: Sequence[float], ky: Sequence[float],
     entry = lib.blur3d_walk_f32 if form == "walk" else lib.blur3d_f32
     Z, Y, X = x.shape
     out = torch.empty_like(x)
-    rc = entry(_device.ptr(x), _device.ptr(out),
-               _device.host_floats(taps[0] + taps[1] + taps[2]), Z, Y, X,
-               *counts, _device.stream_ptr())
-    _device.check_cuda(lib, rc, f"blur3d ({form})")
-    _device.LAUNCHES["blur3d"] += 1
-    _device.BLUR_LAUNCHES[(Z, Y, X, *counts)] += 1
-    _device.BLUR_FORMS[form] += 1
+    _device.launch(lib, entry, x.device, f"blur3d ({form})", _device.ptr(x),
+                   _device.ptr(out),
+                   _device.host_floats(taps[0] + taps[1] + taps[2]), Z, Y, X,
+                   *counts)
+    _device.count_launch("blur3d", 1,
+                         (_device.BLUR_LAUNCHES, (Z, Y, X, *counts)),
+                         (_device.BLUR_FORMS, form))
     return out

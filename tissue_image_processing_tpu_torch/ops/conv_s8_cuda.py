@@ -248,18 +248,15 @@ def _conv3x3_s8(x, wq, wscale, bias, shift, x_scale, out_scale, skip=None,
     tiles = _tc_tiles(H, W, cout, skip is not None) \
         if form == "tensor_core" else dict(mw=0, bn=0, tiles_w=0, tiles_h=0,
                                            tiles_n=0)
-    rc = lib.conv3x3_s8(FORMS.index(form), _device.ptr(x), _device.ptr(p0), cu,
-                        p0.shape[1], x1, w1, cs, k1, B, H, W, cout,
-                        p0.shape[0], tiles["mw"], tiles["bn"],
-                        tiles["tiles_w"], tiles["tiles_h"], tiles["tiles_n"],
-                        _device.ptr(wscale), _device.ptr(bias),
-                        _device.ptr(shift), _device.ptr(s0),
-                        _device.ptr(s0 if s1 is None else s1),
-                        _device.ptr(qmul), _device.ptr(out),
-                        _device.stream_ptr())
-    _device.check_cuda(lib, rc, f"conv3x3_s8 ({form})")
-    _device.LAUNCHES["conv3x3_s8"] += 1
-    _device.CONV_LAUNCHES[form] += 1
+    _device.launch(lib, lib.conv3x3_s8, x.device, f"conv3x3_s8 ({form})",
+                   FORMS.index(form), _device.ptr(x), _device.ptr(p0), cu,
+                   p0.shape[1], x1, w1, cs, k1, B, H, W, cout, p0.shape[0],
+                   tiles["mw"], tiles["bn"], tiles["tiles_w"],
+                   tiles["tiles_h"], tiles["tiles_n"], _device.ptr(wscale),
+                   _device.ptr(bias), _device.ptr(shift), _device.ptr(s0),
+                   _device.ptr(s0 if s1 is None else s1), _device.ptr(qmul),
+                   _device.ptr(out))
+    _device.count_launch("conv3x3_s8", 1, (_device.CONV_LAUNCHES, form))
     return out
 
 

@@ -177,11 +177,10 @@ def bf_flood(img: torch.Tensor, seeds: torch.Tensor) -> torch.Tensor:
     H, W = img.shape
     lam = torch.empty_like(img)
     flags = _diffusion_flags(lib, "diffusion_bf", H, W, img.device)
-    rc = lib.bf_diffusion(_device.ptr(img), _device.ptr(seeds),
-                          _device.ptr(lam), _device.ptr(flags), H, W,
-                          _device.stream_ptr())
-    _device.check_cuda(lib, rc, "bf_flood")
-    _device.LAUNCHES["diffusion_bf"] += 1
+    _device.launch(lib, lib.bf_diffusion, img.device, "bf_flood",
+                   _device.ptr(img), _device.ptr(seeds), _device.ptr(lam),
+                   _device.ptr(flags), H, W)
+    _device.count_launch("diffusion_bf")
     return lam
 
 
@@ -231,10 +230,10 @@ def cc_diffusion(mask: torch.Tensor, init: torch.Tensor | None = None,
     H, W = mask.shape
     lbl = torch.empty((H, W), dtype=torch.int32, device=mask.device)
     flags = _diffusion_flags(lib, "diffusion_cc", H, W, mask.device)
-    rc = lib.cc_diffusion(_device.ptr(m), init_ptr, _device.ptr(lbl),
-                          _device.ptr(flags), H, W, _device.stream_ptr())
-    _device.check_cuda(lib, rc, "cc_diffusion")
-    _device.LAUNCHES["diffusion_cc"] += 1
+    _device.launch(lib, lib.cc_diffusion, mask.device, "cc_diffusion",
+                   _device.ptr(m), init_ptr, _device.ptr(lbl),
+                   _device.ptr(flags), H, W)
+    _device.count_launch("diffusion_cc")
     return lbl
 
 
@@ -312,10 +311,10 @@ def cc_scan(mask: torch.Tensor, init: torch.Tensor | None = None
     H, W = mask.shape
     out = torch.empty((H, W), dtype=torch.int32, device=mask.device)
     parent = torch.empty_like(out)
-    rc = lib.cc_scan_min(_device.ptr(m), init_ptr, _device.ptr(parent),
-                         _device.ptr(out), H, W, _device.stream_ptr())
-    _device.check_cuda(lib, rc, "cc_scan")
-    _device.LAUNCHES["cc_scan"] += _SCAN_LAUNCHES
+    _device.launch(lib, lib.cc_scan_min, mask.device, "cc_scan",
+                   _device.ptr(m), init_ptr, _device.ptr(parent),
+                   _device.ptr(out), H, W)
+    _device.count_launch("cc_scan", _SCAN_LAUNCHES)
     return out
 
 
@@ -344,10 +343,9 @@ def settle_mask(lam: torch.Tensor) -> torch.Tensor:
     lib = _lib()
     H, W = lam.shape
     mask = torch.empty(lam.shape, dtype=torch.int32, device=lam.device)
-    rc = lib.settle_mask(_device.ptr(lam), _device.ptr(mask), H, W,
-                         _device.stream_ptr())
-    _device.check_cuda(lib, rc, "settle_mask")
-    _device.LAUNCHES["settle_mask"] += 1
+    _device.launch(lib, lib.settle_mask, lam.device, "settle_mask",
+                   _device.ptr(lam), _device.ptr(mask), H, W)
+    _device.count_launch("settle_mask")
     return mask
 
 
@@ -423,9 +421,8 @@ def settle(lam: torch.Tensor, seeds: torch.Tensor
     flags = torch.empty((lib.settle_flag_ints(H, W),), dtype=torch.int32,
                         device=seeds.device)
     _ROUNDS["settle"], _SWEEPS["settle"] = flags[-2:-1], flags[-1:]
-    rc = lib.settle_sweeps(_device.ptr(mask), _device.ptr(seeds),
-                           _device.ptr(lbl), _device.ptr(t),
-                           _device.ptr(flags), H, W, _device.stream_ptr())
-    _device.check_cuda(lib, rc, "settle")
-    _device.LAUNCHES["settle"] += 1
+    _device.launch(lib, lib.settle_sweeps, seeds.device, "settle",
+                   _device.ptr(mask), _device.ptr(seeds), _device.ptr(lbl),
+                   _device.ptr(t), _device.ptr(flags), H, W)
+    _device.count_launch("settle")
     return lbl, t

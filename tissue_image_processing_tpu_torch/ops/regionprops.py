@@ -15,6 +15,7 @@ from typing import Dict, Optional
 
 import torch
 
+from tissue_image_processing_tpu_torch import _device
 from tissue_image_processing_tpu_torch._numerics import fma_f32
 from tissue_image_processing_tpu_torch.ops.morphology import shift2d
 
@@ -25,15 +26,23 @@ _DIAG4 = [(1, 1), (1, -1), (-1, 1), (-1, -1)]
 _SQRT2 = torch.tensor(math.sqrt(2.0), dtype=torch.float32).item()
 
 
-def _perimeter_tables(device):
-    """Weight = (a + b*sqrt2) / 2 with small ints a, b per border code."""
-    a = torch.zeros(50, dtype=torch.int64, device=device)
-    b = torch.zeros(50, dtype=torch.int64, device=device)
+def _host_perimeter_tables() -> torch.Tensor:
+    a = torch.zeros(50, dtype=torch.int64)
+    b = torch.zeros(50, dtype=torch.int64)
     a[[5, 7, 15, 17, 25, 27]] = 2
     b[[21, 33]] = 2
     a[[13, 23]] = 1
     b[[13, 23]] = 1
-    return a, b
+    return torch.stack([a, b])
+
+
+def _perimeter_tables(device):
+    """Weight = (a + b*sqrt2) / 2 with small ints a, b per border code. Built
+    on the host and copied once per device and stream, so a call makes no
+    host synchronisation."""
+    ab = _device.host_constant("perimeter_tables", _host_perimeter_tables,
+                               device)
+    return ab[0], ab[1]
 
 
 def perimeter_codes(labels: torch.Tensor) -> torch.Tensor:

@@ -16,9 +16,22 @@ card, and one process can drive every card of a host. So
   explicit ``.to(device)`` copies (non-blocking onto a card) plus
   ``torch.cat`` or a sum, made once per distinct device. None reads a value
   back to the host;
-- shard bodies run in a Python loop over the mesh positions. On one card
-  they queue on its stream; on several cards each card's work queues on its
-  own stream as long as the shard body makes no host synchronisation.
+- shard bodies run through :meth:`Mesh.run`, in the calling thread: on
+  the card each position has a CUDA stream of its own on its device (a
+  virtual mesh on one card gets one stream a position, so its positions
+  overlap as separate cards would); on the CPU the positions run in
+  order. A shard body makes no host synchronisation, so the calling thread
+  queues every position's body without waiting for the card.
+
+The runner is fork-join on the device. At entry each position's stream
+waits on an event recorded on the caller's current stream of its device;
+at exit the caller's stream waits on an event recorded on each position's
+stream. The collectives run between runner calls, on the caller's streams,
+so every hand-over between a producer's stream and a consumer's goes
+through one of those events; that holds on a virtual mesh too, where
+``_move`` hands the same tensor to another stream. A tensor that crosses
+the runner's boundary, in or out, is ``record_stream``-ed on the stream
+that uses it, so the caching allocator does not reuse its memory early.
 
 Axes as in the JAX package: ``data`` (frames / batch) and ``model`` (the
 U-Net's conv output channels). :func:`unet_train_step_sharded` is data
@@ -51,13 +64,29 @@ __all__ = ["Mesh", "make_mesh", "shard_batch", "shard_params",
            "all_gather", "psum", "axis_index"]
 
 
+FORMS = ("streams", "serial")
+
+
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """A named grid of devices: ``devices`` is a numpy object array of
-    ``torch.device`` with one axis per name in ``axis_names``."""
+    ``torch.device`` with one axis per name in ``axis_names``.
+
+    ``_form`` says how :meth:`run` runs the positions on the card:
+    ``"streams"`` (a stream a position) or ``"serial"`` (the caller's
+    stream), which exists to compare the two in one process
+    (``dataclasses.replace(mesh, _form="serial")``)."""
 
     devices: np.ndarray
     axis_names: Tuple[str, ...]
+    _form: str = dataclasses.field(default="streams", repr=False)
+    # position index -> its CUDA stream, made at the position's first run
+    _streams: Dict[Tuple[int, ...], "torch.cuda.Stream"] = dataclasses.field(
+        default_factory=dict, init=False, compare=False, repr=False)
+
+    def __post_init__(self):
+        if self._form not in FORMS:
+            raise ValueError(f"Mesh form {self._form!r} not in {FORMS}")
 
     @property
     def shape(self) -> "collections.OrderedDict[str, int]":
@@ -67,6 +96,68 @@ class Mesh:
     def lead(self) -> torch.device:
         """The device of the first position, where replicated results land."""
         return self.devices.flat[0]
+
+    def _stream(self, pos: Tuple[int, ...]) -> "torch.cuda.Stream":
+        stream = self._streams.get(pos)
+        if stream is None:
+            stream = self._streams[pos] = torch.cuda.Stream(
+                device=self.devices[pos])
+        return stream
+
+    def run(self, fn, *args, positions=None) -> list:
+        """``[fn(*a) for a in zip(*args)]``: ``fn`` once for each position of
+        ``positions`` (index tuples of ``devices``; default every position,
+        in order), given that position's element of each sequence in
+        ``args``. Returns the results in position order.
+
+        The calls run in the calling thread, in order. On a card each runs
+        under ``torch.cuda.device`` and ``torch.cuda.stream`` of its
+        position's device and stream, fork-join against the caller's
+        streams (see the module docstring); on the CPU, and in the
+        ``"serial"`` form, on the caller's streams. An exception in a
+        position is raised here with a note naming the position."""
+        if positions is None:
+            positions = list(np.ndindex(self.devices.shape))
+        per_pos = list(zip(*args)) if args else [()] * len(positions)
+        if len(per_pos) != len(positions):
+            raise ValueError(f"{len(per_pos)} argument sets for "
+                             f"{len(positions)} mesh positions")
+        devs = [self.devices[p] for p in positions]
+        if self._form == "serial" or any(d.type != "cuda" for d in devs):
+            return [_call(pos, fn, a) for pos, a in zip(positions, per_pos)]
+        streams = [self._stream(p) for p in positions]
+        for dev, stream, a in zip(devs, streams, per_pos):
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            _record_on(a, stream)
+        results = []
+        for pos, dev, stream, a in zip(positions, devs, streams, per_pos):
+            with torch.cuda.device(dev), torch.cuda.stream(stream):
+                results.append(_call(pos, fn, a))
+        for dev, stream, out in zip(devs, streams, results):
+            caller = torch.cuda.current_stream(dev)
+            caller.wait_stream(stream)
+            _record_on(out, caller)
+        return results
+
+
+def _call(pos, fn, args):
+    """``fn(*args)`` in the calling thread, an exception naming ``pos``."""
+    try:
+        return fn(*args)
+    except Exception as exc:
+        exc.add_note(f"raised in mesh position {pos}")
+        raise
+
+
+def _record_on(obj, stream: "torch.cuda.Stream") -> None:
+    """``record_stream(stream)`` on each card tensor of ``obj`` (a tensor
+    or nested tuples / lists of them) on ``stream``'s device."""
+    if isinstance(obj, torch.Tensor):
+        if obj.device == stream.device:
+            obj.record_stream(stream)
+    elif isinstance(obj, (tuple, list)):
+        for item in obj:
+            _record_on(item, stream)
 
 
 def _mesh_devices(n_devices: Optional[int], devices, what: str

@@ -3,8 +3,11 @@
 Port of ``tissue_image_processing_tpu/parallel/pipeline.py``. The per-frame
 pixel work (surface projection, segmentation, region properties) is
 independent across the movie's T axis, so each shard of a 1-D ``("frame",)``
-mesh takes T / n frames, uploaded to its device, and runs them one after the
-other. Two small cross-frame exchanges remain:
+mesh takes T / n frames and runs them one after the other. On the card each
+position uploads its own frames and runs them on a CUDA stream of its own
+(:meth:`~.mesh.Mesh.run`), so one position's work overlaps the next one's;
+on the CPU the positions run in order. Two small cross-frame exchanges
+remain, after the positions have joined:
 
 - drift needs each shard's previous frame: :func:`~.mesh.ppermute` sends
   each shard's last projected frame to the next shard (a frame halo of 1);
@@ -52,24 +55,31 @@ def make_frame_mesh(n_devices: Optional[int] = None, devices=None) -> Mesh:
     return Mesh(_object_array(devs, (len(devs),)), ("frame",))
 
 
-def _frame_shards(mesh: Mesh, movie) -> List[torch.Tensor]:
-    """The (T, ...) movie split into T / n frames a shard, each uploaded to
-    its shard's device."""
+def _map_frames(one_frame, shard: torch.Tensor):
+    """``jax.lax.map``: ``one_frame`` on each frame of a shard, outputs
+    stacked."""
+    outs = [one_frame(frame) for frame in shard]
+    return tuple(torch.stack(o) for o in zip(*outs))
+
+
+def _shard_frames(one_frame, frames: torch.Tensor, device: torch.device):
+    """One position's shard body: its (T / n, ...) frames uploaded to its
+    device (non-blocking) and :func:`_map_frames` over them."""
+    return _map_frames(one_frame, _move(frames, device))
+
+
+def _map_shards(mesh: Mesh, one_frame, movie) -> list:
+    """The (T, ...) movie split into T / n frames a shard, and each
+    position's :func:`_shard_frames` run by :meth:`~.mesh.Mesh.run` (a
+    stream each on the card). Returns the positions' outputs in order."""
     n = mesh.shape["frame"]
     if movie.shape[0] % n:
         raise ValueError(f"T={movie.shape[0]} must be divisible by the mesh's "
                          f"frame axis {n}")
     t = (movie if isinstance(movie, torch.Tensor)
          else torch.from_numpy(np.require(movie, requirements=["C", "W"])))
-    return [_move(s, dev) for s, dev in
-            zip(torch.chunk(t, n, 0), mesh.devices.reshape(-1))]
-
-
-def _map_frames(one_frame, shard: torch.Tensor):
-    """``jax.lax.map``: ``one_frame`` on each frame of a shard, outputs
-    stacked."""
-    outs = [one_frame(frame) for frame in shard]
-    return tuple(torch.stack(o) for o in zip(*outs))
+    return mesh.run(lambda frames, dev: _shard_frames(one_frame, frames, dev),
+                    torch.chunk(t, n, 0), list(mesh.devices.reshape(-1)))
 
 
 def _watershed_frame(reference_channel, threshold, std, block_size,
@@ -134,7 +144,7 @@ def sharded_movie_pipeline(
                                  block_size, airyscan, capacity)
 
     def fn(movie):
-        outs = [_map_frames(one_frame, s) for s in _frame_shards(mesh, movie)]
+        outs = _map_shards(mesh, one_frame, movie)
         return _drift_track_tail(*map(list, zip(*outs)),
                                  upsample_factor=upsample_factor,
                                  track_cap=track_cap)
@@ -155,7 +165,7 @@ def _sharded_segment_program(mesh, capacity, reference_channel, threshold,
                                  block_size, airyscan, capacity)
 
     def fn(chunk, prev_ref):
-        outs = [_map_frames(one_frame, s) for s in _frame_shards(mesh, chunk)]
+        outs = _map_shards(mesh, one_frame, chunk)
         ref, cy, cx, area, mask = map(list, zip(*outs))
         prev_last = ppermute([r[-1] for r in ref],
                              [(i, (i + 1) % n) for i in range(n)])
@@ -295,8 +305,8 @@ def sharded_unet_pipeline(
 
     def fn(variables, movie):
         nets = _replicated_models(mesh, model, variables)
-        outs = [_map_frames(lambda s: one_frame(nets[s.device], s), shard)
-                for shard in _frame_shards(mesh, movie)]
+        outs = _map_shards(mesh, lambda s: one_frame(nets[s.device], s),
+                           movie)
         return _drift_track_tail(*map(list, zip(*outs)),
                                  upsample_factor=upsample_factor,
                                  track_cap=track_cap)

@@ -18,6 +18,10 @@ and every stage below runs over the whole grid before the next starts:
 - argmax over z, the mask product and the per-channel max are pointwise in
   (y, x).
 
+Every per-shard step runs through :meth:`~.mesh.Mesh.run` (on the card, a
+stream a mesh position); the exchanges and the clip's counts run between
+those steps, on the caller's streams.
+
 Each stage exchanges the halo of its own input — 4 px for the pre-blur,
 120 px for the score blur, 8 px of the int height map. Folding them into
 one raw-input exchange is wrong at global edges: blur2(blur1(x)) under
@@ -197,59 +201,63 @@ def _crop(grid: np.ndarray, ext: np.ndarray, halo: int) -> np.ndarray:
     return out
 
 
-def _blur_with_halo(grid: np.ndarray, sigmas, halo: int) -> np.ndarray:
+def _grid_map(mesh: Mesh, frame: int):
+    """``map_(fn, *grids)``: ``fn`` on the shards of each position of the
+    grids of frame row ``frame`` of ``mesh``, through
+    :meth:`~.mesh.Mesh.run` (a stream a position on the card), as a grid."""
+    def map_(fn, *grids) -> np.ndarray:
+        shape = grids[0].shape
+        positions = [(frame, *idx)[:mesh.devices.ndim]
+                     for idx in np.ndindex(shape)]
+        return _object_array(mesh.run(fn, *(list(g.flat) for g in grids),
+                                      positions=positions), shape)
+    return map_
+
+
+def _blur_with_halo(grid: np.ndarray, sigmas, halo: int, map_) -> np.ndarray:
     """Blur each (Z, Yl, Xl) shard of ``grid`` with (z, y, x) ``sigmas``: a
     ``halo``-px halo of the CURRENT field in each sharded spatial axis
     (global edges replicate this field's edge pixels, the unsharded blur's
-    'nearest' boundary), the extended block blurred, then cropped."""
+    'nearest' boundary), the extended block blurred (``map_``: see
+    :func:`_grid_map`), then cropped."""
     ext = _halo_extend(grid, halo)
-    blurred = ext.copy()
-    for idx, e in np.ndenumerate(ext):
-        blurred[idx] = gaussian_blur(e, sigmas)
-    return _crop(grid, blurred, halo)
+    return _crop(grid, map_(lambda e: gaussian_blur(e, sigmas), ext), halo)
 
 
-def _map(fn, *grids) -> np.ndarray:
-    """``fn`` on the shards of one position of each grid, as a grid."""
-    out = np.empty(grids[0].shape, dtype=object)
-    for idx in np.ndindex(grids[0].shape):
-        out[idx] = fn(*(g[idx] for g in grids))
-    return out
-
-
-def _project_block(img: np.ndarray, reference_channel: int, airyscan: bool,
-                   airyscan_offset: float, atoh_shift: int):
+def _project_block(img: np.ndarray, map_, reference_channel: int,
+                   airyscan: bool, airyscan_offset: float, atoh_shift: int):
     """One frame's projection over a grid of (C, Z, Yl, Xl) space shards:
     ``time_point_surface_projection`` (method 'max_averages', precise
-    blurs) stage for stage, each stencil exchanging its own halo. Returns
-    the grids of (C, Yl, Xl) projections and (Yl, Xl) z-maps."""
-    img = _map(lambda x: x.to(torch.float32), img)
+    blurs) stage for stage, each stencil exchanging its own halo and each
+    per-shard step run by ``map_`` (:func:`_grid_map`). Returns the grids
+    of (C, Yl, Xl) projections and (Yl, Xl) z-maps."""
+    img = map_(lambda x: x.to(torch.float32), img)
     if airyscan:
-        img = _map(lambda x: torch.clamp_min(x - airyscan_offset, 0.0), img)
+        img = map_(lambda x: torch.clamp_min(x - airyscan_offset, 0.0), img)
     channels, z_size = img[0, 0].shape[:2]
 
-    ref = _map(lambda x: x[reference_channel], img)
-    p95 = clip_percentile_sharded(ref, _map(lambda r: r > 0, ref), 95.0)
-    ref = _map(lambda r, p: torch.where((r > p) & (p > 0), p, r), ref, p95)
+    ref = map_(lambda x: x[reference_channel], img)
+    p95 = clip_percentile_sharded(ref, map_(lambda r: r > 0, ref), 95.0)
+    ref = map_(lambda r, p: torch.where((r > p) & (p > 0), p, r), ref, p95)
     # radius = int(4 * sigma + 0.5) (scipy), per stage
-    ref = _blur_with_halo(ref, (0.5, 1.0, 1.0), 4)
-    score = _blur_with_halo(ref, (0.5, 30.0, 30.0), 120)
-    rel_z = _map(lambda s: torch.argmax(s, dim=0).to(torch.int32), score)
+    ref = _blur_with_halo(ref, (0.5, 1.0, 1.0), 4, map_)
+    score = _blur_with_halo(ref, (0.5, 30.0, 30.0), 120, map_)
+    rel_z = map_(lambda s: torch.argmax(s, dim=0).to(torch.int32), score)
 
     def blur_onehot(rz):
         # the one-hot of the halo-extended height map is the halo extension
         # of the one-hot volume, so exchanging the small int map suffices
-        ext = _halo_extend(_map(lambda r: r[None], rz), 8)
+        ext = _halo_extend(map_(lambda r: r[None], rz), 8)
         zidx = torch.arange(z_size, dtype=torch.int32).reshape(z_size, 1, 1)
-        m = _map(lambda e: gaussian_blur(
+        m = map_(lambda e: gaussian_blur(
             (_move(zidx, e.device) == e).to(torch.float32), (1.0, 2.0, 2.0)),
             ext)
         return _crop(rz, m, 8)
 
     mask = blur_onehot(rel_z)
-    mask_atoh = mask if atoh_shift == 0 else blur_onehot(_map(
+    mask_atoh = mask if atoh_shift == 0 else blur_onehot(map_(
         lambda r: torch.clamp(r + atoh_shift, 0, z_size - 1), rel_z))
-    projection = _map(lambda x, m, ma: torch.stack([
+    projection = map_(lambda x, m, ma: torch.stack([
         (x[c] * (m if c == reference_channel else ma)).amax(dim=0)
         for c in range(channels)]), img, mask, mask_atoh)
     return projection, rel_z
@@ -292,14 +300,15 @@ def sharded_projection(
              else torch.from_numpy(np.require(movie, requirements=["C", "W"])))
         projs, zmaps = [], []
         for f in range(nf):
-            shard = _map(lambda dev, iy, ix: _move(
+            map_ = _grid_map(mesh, f)
+            shard = map_(lambda dev, iy, ix: _move(
                 t[f * Tl:(f + 1) * Tl, ..., iy * Yl:(iy + 1) * Yl,
                   ix * Xl:(ix + 1) * Xl], dev),
                 devs[f], *np.indices((ny, nx)))
             for k in range(Tl):
                 proj, zmap = _project_block(
-                    _map(lambda s: s[k], shard), reference_channel, airyscan,
-                    airyscan_offset, atoh_shift)
+                    map_(lambda s: s[k], shard), map_, reference_channel,
+                    airyscan, airyscan_offset, atoh_shift)
                 projs.append(_join(proj, mesh.lead))
                 zmaps.append(_join(zmap, mesh.lead))
         return torch.stack(projs), torch.stack(zmaps)

@@ -121,13 +121,12 @@ def score_pass(vol: torch.Tensor, p95: torch.Tensor,
     p = p95.to(torch.float32).reshape(1).contiguous()
     out = torch.empty((Z, Y // _DEC, X // _DEC), dtype=torch.float32,
                       device=vol.device)
-    rc = lib.proj_score(_device.ptr(vol), _device.ptr(p),
-                        _device.host_floats(sum(_SCORE_TAPS, ())),
-                        _device.ptr(out), Z, Y, X,
-                        *(len(k) for k in _SCORE_TAPS), float(airyscan_offset),
-                        _device.stream_ptr())
-    _device.check_cuda(lib, rc, "proj_score")
-    _device.LAUNCHES["proj_score"] += 1
+    _device.launch(lib, lib.proj_score, vol.device, "proj_score",
+                   _device.ptr(vol), _device.ptr(p),
+                   _device.host_floats(sum(_SCORE_TAPS, ())),
+                   _device.ptr(out), Z, Y, X, *(len(k) for k in _SCORE_TAPS),
+                   float(airyscan_offset))
+    _device.count_launch("proj_score")
     return out
 
 
@@ -183,14 +182,13 @@ def project_pass(img: torch.Tensor, rel_z: torch.Tensor,
         raise ValueError(f"project_pass: at most {_MAX_Z} z-planes, got {Z}")
     lib = _device.load_library("projection", _SIGNATURES)
     out = torch.empty((C, Y, X), dtype=torch.float32, device=img.device)
-    rc = lib.proj_project(_device.ptr(img), _device.ptr(rel_z),
-                          _device.host_floats(sum(_PROJECT_TAPS, ())),
-                          _device.ptr(out), C, Z, Y, X,
-                          *(len(k) for k in _PROJECT_TAPS),
-                          float(airyscan_offset), int(ref_channel),
-                          int(atoh_shift), _device.stream_ptr())
-    _device.check_cuda(lib, rc, "proj_project")
-    _device.LAUNCHES["proj_project"] += 1
+    _device.launch(lib, lib.proj_project, img.device, "proj_project",
+                   _device.ptr(img), _device.ptr(rel_z),
+                   _device.host_floats(sum(_PROJECT_TAPS, ())),
+                   _device.ptr(out), C, Z, Y, X,
+                   *(len(k) for k in _PROJECT_TAPS), float(airyscan_offset),
+                   int(ref_channel), int(atoh_shift))
+    _device.count_launch("proj_project")
     return out
 
 
