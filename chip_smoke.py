@@ -126,7 +126,10 @@ Phases (any failure exits non-zero; no phase catches and continues):
    with two undos (bit for bit), ``.seg`` save and load (equal); the same
    steps on a CPU session are held to the card's (exact but the float
    features, 1e-5, and the re-tracked drifts, one 0.01 px bin); planted
-   events at 2000 cells on 1024^2 are found, none on a static tissue;
+   events at 2000 cells on 1024^2 are found, none on a static tissue; the
+   example analyses ``examples/event_rates_torch.py`` and
+   ``examples/survival_by_neighbors_torch.py`` on the card's ``.seg``,
+   their CSV and JSON outputs on the card equal to ``device="cpu"``;
 9. "cli": the session front end (``check_cli``). The main CLI's ``main``
    on the card, file to file, with the headline movie written as a
    ``.npy`` store under ``build/``: ``pipeline --events`` (every watershed
@@ -166,9 +169,15 @@ Phases (any failure exits non-zero; no phase catches and continues):
     its device seconds; where two or more cards are visible, the
     watershed and U-Net on a mesh of every card (ids equal to one card);
     the (data 2 x model 2) training step against ``make_train_step``
-    (float32, the CPU tests' tolerances) and 10 bfloat16 steps of each
-    (steps/s), the card against the CPU on the CPU tests' tiny shapes,
-    and the host synchronisations counted by path;
+    (float32 and, in each form, float64: the CPU tests' tolerances) and
+    10 bfloat16 steps a run of each form and of the unsharded step, in
+    turns (steps/s), the step under ``set_sync_debug_mode("error")``, one
+    run traced (its four position streams busy and their overlap); the
+    card against the CPU on the CPU tests' tiny shapes, and the host
+    synchronisations counted by path. ``cards`` runs the multi-card parts
+    alone: the pipelines on a mesh of every card and, where four cards
+    are visible, the training step over four of them (float64 hold, 10
+    bfloat16 steps a run of each form, syncs 0);
 11. print the kernel table as one JSON object (launches from the Z=30
     watershed run, the component minimum's from the U-Net run, the int8
     conv's from the int8 U-Net run, with its launches by form — its times
@@ -2534,6 +2543,8 @@ def check_tissue(card: str, movie, device: str = "cuda", side: int = 1024,
         t0 = time.perf_counter()
         got = run(card_s, T, steps)
         card_total = time.perf_counter() - t0
+        check_examples(card, str(Path(d) / f"{card_s.device.type}.seg"),
+                       Path(d), device)
         for name, (ms, launches) in steps.items():
             print(f"tissue (card): {name} {ms:.3f} ms per frame "
                   f"(hand-written kernel launches: {launches or 'none'}) on {card}")
@@ -2639,6 +2650,123 @@ def check_tissue(card: str, movie, device: str = "cuda", side: int = 1024,
           f"({-(-side // 16)}^2 grid) {sm_ms:.4f} ms on {card}")
     print(f"tissue: phase {time.perf_counter() - t_phase:.1f} s on {card}")
     return feed
+
+
+def matplotlib_stand_in() -> dict:
+    """Stub ``matplotlib`` and ``matplotlib.pyplot`` modules (the card's
+    machine has no matplotlib) with what the example analyses draw with:
+    ``subplots`` hands out axes whose every method does nothing, and a
+    figure's ``savefig`` writes an empty file, so the scripts write their
+    data files as they do with the real library."""
+    import types
+
+    class Axes:
+        def __getattr__(self, name):
+            return lambda *args, **kwargs: None
+
+    class Figure(Axes):
+        def savefig(self, path, *args, **kwargs):
+            Path(path).write_bytes(b"")
+
+    def subplots(nrows=1, ncols=1, **kwargs):
+        n = nrows * ncols
+        return Figure(), Axes() if n == 1 else tuple(Axes() for _ in range(n))
+
+    mpl = types.ModuleType("matplotlib")
+    plt = types.ModuleType("matplotlib.pyplot")
+    mpl.use = lambda *args, **kwargs: None
+    plt.subplots, plt.close = subplots, lambda *args, **kwargs: None
+    mpl.pyplot = plt
+    return {"matplotlib": mpl, "matplotlib.pyplot": plt}
+
+
+def data_files(folder: Path) -> dict:
+    """The CSV and JSON files an example analysis wrote into ``folder``:
+    {name: CSV table or parsed JSON}."""
+    import pandas as pd
+
+    out = {}
+    for path in sorted(folder.iterdir()):
+        if path.suffix == ".csv":
+            out[path.name] = pd.read_csv(path)
+        elif path.suffix == ".json":
+            out[path.name] = json.loads(path.read_text())
+    return out
+
+
+def check_examples(card: str, seg: str, root: Path, device: str = "cuda"
+                   ) -> None:
+    """``examples/event_rates_torch.py`` (a 2 x 2 design: two groups of
+    sessions, each ``seg`` twice, and two of literal counts) and
+    ``examples/survival_by_neighbors_torch.py`` on ``seg``, each run on
+    ``device`` (the card: ``device=None``, the scripts' default) and with
+    ``device="cpu"``: the same files, their CSV tables and JSON equal
+    (integers exactly, floats to rtol 1e-6). matplotlib's stand-in where
+    it is missing."""
+    import pandas as pd
+
+    examples = Path(__file__).resolve().parent / "examples"
+
+    def script(name):
+        spec = importlib.util.spec_from_file_location(
+            f"smoke_{name}", examples / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
+    rates, survival = script("event_rates_torch"), script(
+        "survival_by_neighbors_torch")
+    literal = {"counts": [32, 27, 59], "hours": [48, 46, 30],
+               "area_um2": [327040, 300160, 328320]}
+    sessions = {"sessions": [seg, seg], "hours": [30, 36],
+                "area_um2": [1e6, 1.1e6]}
+    groups = {"E17.5/normal": literal, "E17.5/ablation": sessions,
+              "P0/normal": dict(literal, counts=[8, 14, 11]),
+              "P0/ablation": dict(sessions, hours=[40, 44])}
+    real = importlib.util.find_spec("matplotlib") is not None
+    stubs = {} if real else matplotlib_stand_in()
+    got = {}
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        for name, mod in stubs.items():
+            stack.enter_context(stub_module(name, mod))
+        for on, dev in (("card", None if device == "cuda" else device),
+                        ("cpu", "cpu")):
+            out = root / f"examples_{on}"
+            out.mkdir()
+            cfg = root / f"rates_{on}.json"
+            cfg.write_text(json.dumps({"groups": groups, "output": str(out),
+                                       "event_type": "differentiation"}))
+            assert rates.main([str(cfg)], device=dev) == 0
+            assert survival.main([str(out), seg, seg], device=dev) == 0
+            got[on] = data_files(out)
+    seconds = time.perf_counter() - t0
+    card_files, cpu_files = got["card"], got["cpu"]
+    assert card_files.keys() == cpu_files.keys() and card_files, \
+        (card_files.keys(), cpu_files.keys())
+    for name, want in cpu_files.items():
+        have = card_files[name]
+        if isinstance(want, pd.DataFrame):
+            assert list(have.columns) == list(want.columns), name
+            for col in want.columns:
+                a, b = have[col].to_numpy(), want[col].to_numpy()
+                if a.dtype.kind == "f" or b.dtype.kind == "f":
+                    np.testing.assert_allclose(a.astype(float), b.astype(float),
+                                               rtol=1e-6, err_msg=name + col)
+                else:
+                    both = pd.isna(a) & pd.isna(b)
+                    assert np.array_equal(a[~both], b[~both]), name + col
+        else:
+            assert json.dumps(have, sort_keys=True) == json.dumps(
+                want, sort_keys=True), name
+    curves = card_files["survival_by_neighbors_data.csv"]
+    print(f"tissue: the example analyses on the card's .seg "
+          f"(event_rates_torch 2 x 2 design: "
+          f"{card_files['differentiation_rates_stats.json']['method']}; "
+          f"survival_by_neighbors_torch: {curves.shape[1] - 1} curve columns "
+          f"of {len(curves)} rows): {sorted(card_files)} on the card equal "
+          f"to device='cpu' ({'matplotlib' if real else 'a matplotlib stand-in'}"
+          f"; {seconds:.1f} s for both) on {card}")
 
 
 def populate_session(feed, frames: int, path: str, device, channel_names,
@@ -3739,12 +3867,15 @@ def parallel_cards(par: ParallelRun, movie, kw: dict, ids, model, params,
 
 def check_cards(card: str, movie, shards: int = 4, capacity: int = 1024,
                 block_size: int = 101, unet_depth: int = 3,
-                unet_filters: int = 128) -> None:
+                unet_filters: int = 128, train_filters: int = 128,
+                train_batch: int = 32, train_side: int = 256) -> None:
     """The frame-sharded watershed and U-Net on a virtual mesh of
     ``shards`` positions on card 0 (both forms, shard bodies under
     ``set_sync_debug_mode("error")``), then on a mesh of every visible card
-    against them (:func:`parallel_cards`): step 4 of the "parallel" phase
-    and what it is compared with, alone, for a machine with several
+    against them (:func:`parallel_cards`); then the training step over
+    (data 2 x model 2) of four cards against four positions of card 0
+    (:func:`train_cards`): the multi-card parts of the "parallel" phase
+    and what they are compared with, alone, for a machine with several
     cards."""
     import torch
 
@@ -3767,6 +3898,10 @@ def check_cards(card: str, movie, shards: int = 4, capacity: int = 1024,
               f"{forms_line(movie.shape[0], secs)} on {card}")
     parallel_cards(par, movie, kw, got["watershed"], model, cfg["params"],
                    got["unet"])
+    del model, cfg
+    train_cards(par, train_filters, train_batch, train_side)
+    print(f"parallel: host synchronisations by path (a sync fails the run): "
+          f"{par.syncs}")
 
 
 def parallel_space(par: ParallelRun, movie) -> dict:
@@ -3890,88 +4025,256 @@ def parallel_space(par: ParallelRun, movie) -> dict:
     return rows
 
 
-def parallel_training(par: ParallelRun, filters: int, batch: int,
-                      side: int) -> None:
-    """Step 5 of the "parallel" phase: ``unet_train_step_sharded`` over
-    (data 2 x model 2) with the training cell's recipe against
-    ``make_train_step``, one step each from the same state and batch:
+@dataclasses.dataclass
+class TrainCase:
+    """The training cell's batch (``batch`` crops of ``side``^2 from
+    ``utils/synthetic.py:training_frames``, the reference recipe's crop
+    generator) and the one-step helpers of step 5 of the "parallel" phase
+    and of ``check_cards``: a fresh depth-2 U-Net and Adam from seed 0 on
+    ``dev``, one step sharded over a (data 2 x model 2) mesh or unsharded,
+    and the CPU tests' tolerances."""
+    dev: "object"
+    filters: int
+    batch: int
+    side: int
+    lr: float = 1e-5
 
-    - in float32 with TF32 off: the loss, parameters and BatchNorm
-      statistics to the CPU tests' tolerances (``tests/test_torch_train.py``:
-      loss rel 1e-5, parameters 2 x lr, statistics 1e-6); the gradients'
-      difference is printed beside the unsharded step's own difference
-      between two runs (cuDNN's float32 kernels are not deterministic, and
-      at this size their sums spread past those tests' 1e-4 of the largest
-      gradient: PERF.md section 6);
-    - in float64 (``UNet(dtype=torch.float64)``, ``double()``) on a
-      quarter of the batch (float64 doubles the memory): all of those
-      tolerances, each gradient to 1e-4 of its largest magnitude
-      included. A per-shard BatchNorm or a lost gradient sum misses them
-      by orders of magnitude;
+    def __post_init__(self):
+        from tissue_image_processing_tpu_torch.models import train
+        from tissue_image_processing_tpu_torch.utils.synthetic import (
+            training_frames)
 
-    then 10 bfloat16 steps of each (steps/s)."""
-    import torch
+        images, labels = training_frames(2, 2 * self.side, 2 * self.side,
+                                         seed=3)
+        self.bx, self.by = next(train.crop_generator(
+            images, labels, self.batch, self.side, seed=0))
 
-    from tissue_image_processing_tpu_torch.models import train
-    from tissue_image_processing_tpu_torch.models.unet import UNet
-    from tissue_image_processing_tpu_torch.parallel import mesh as pmesh
-    from tissue_image_processing_tpu_torch.utils.synthetic import (
-        training_frames)
+    def fresh(self, dtype):
+        import torch
 
-    dev, card = par.dev, par.card
-    tmesh = pmesh.Mesh(pmesh._object_array(par.devs[:4], (2, 2)),
-                       ("data", "model"))
-    images, labels = training_frames(2, 2 * side, 2 * side, seed=3)
-    bx, by = next(train.crop_generator(images, labels, batch, side, seed=0))
-    lr = 1e-5
+        from tissue_image_processing_tpu_torch.models import train
+        from tissue_image_processing_tpu_torch.models.unet import UNet
 
-    def fresh(dtype):
-        net = UNet(depth=2, base_filters=filters, dropout_rate=0.0,
+        net = UNet(depth=2, base_filters=self.filters, dropout_rate=0.0,
                    dtype=dtype)
-        state, tx = train.create_train_state(net, (side, side, 2), lr, seed=0,
-                                             device=dev)
+        state, tx = train.create_train_state(net, (self.side, self.side, 2),
+                                             self.lr, seed=0, device=self.dev)
         if dtype == torch.float64:
             net.double()   # in place: the optimizer keeps its parameters
         return net, state, tx
 
-    def one_step(dtype, sharded: bool, n: int):
+    def one_step(self, dtype, mesh, n: int):
         """(loss, gradients, state_dict) after one step from seed 0 on the
-        batch's first ``n`` crops."""
-        net, state, tx = fresh(dtype)
-        if sharded:
-            state = pmesh.shard_params(tmesh, state)
+        batch's first ``n`` crops: over ``mesh`` (None: unsharded)."""
+        import torch
+
+        from tissue_image_processing_tpu_torch.models import train
+        from tissue_image_processing_tpu_torch.parallel import mesh as pmesh
+
+        net, state, tx = self.fresh(dtype)
+        if mesh is not None:
+            state = pmesh.shard_params(mesh, state)
             state, loss = pmesh.unet_train_step_sharded(
-                tmesh, net, state.optimizer)(state, pmesh.shard_batch(
-                    tmesh, bx[:n]), by[:n])
+                mesh, net, state.optimizer)(state, pmesh.shard_batch(
+                    mesh, self.bx[:n]), self.by[:n])
             sp = state.model
             grads = {k: (g[0] if sp.specs[k] is None else
-                         torch.cat(g, sp.specs[k]))
+                         torch.cat([t.to(self.dev) for t in g], sp.specs[k]))
                      for k, g in ((k, [p.grad for p in ps])
                                   for k, ps in sp.shards.items())
                      if g[0] is not None}
             out = float(loss), grads, sp.state_dict()
         else:
-            state, loss, _ = train.make_train_step(net, tx)(state, bx[:n],
-                                                            by[:n])
+            state, loss, _ = train.make_train_step(net, tx)(
+                state, self.bx[:n], self.by[:n])
             out = (float(loss), {k: p.grad for k, p in net.named_parameters()},
                    net.state_dict())
-        if par.on_card:
+        if self.dev.type == "cuda":
             torch.cuda.empty_cache()
         return out
 
+    @staticmethod
     def worst_gradient(a, b) -> float:
         return max(float((a[1][k] - g).abs().max()) / float(g.abs().max())
                    for k, g in b[1].items())
 
-    def hold(a, b, what: str, gradients: bool) -> None:
+    def hold(self, a, b, what: str, gradients: bool) -> None:
+        import torch
+
         assert abs(a[0] - b[0]) <= 1e-5 * abs(b[0]), (what, a[0], b[0])
         if gradients:
-            assert worst_gradient(a, b) <= 1e-4, (what, worst_gradient(a, b))
+            assert self.worst_gradient(a, b) <= 1e-4, \
+                (what, self.worst_gradient(a, b))
         for k, v in b[2].items():
             if "num_batches" not in k:
                 torch.testing.assert_close(
                     a[2][k], v, rtol=0,
-                    atol=1e-6 if "running" in k else 2 * lr, msg=what + k)
+                    atol=1e-6 if "running" in k else 2 * self.lr,
+                    msg=what + k)
+
+
+def train_mesh(devs, form: str = "streams"):
+    """A (data 2 x model 2) mesh of ``devs`` in ``form``."""
+    from tissue_image_processing_tpu_torch.parallel import mesh as pmesh
+
+    return pmesh.Mesh(pmesh._object_array(list(devs), (2, 2)),
+                      ("data", "model"), _form=form)
+
+
+def train_float64_holds(case: TrainCase, devs, where: str, card: str) -> None:
+    """One float64 step of each form over ``train_mesh(devs)`` against the
+    unsharded step on ``case.dev``, on a quarter of the batch (float64
+    doubles the memory): loss rel 1e-5, each gradient to 1e-4 of its
+    largest magnitude, parameters 2 x lr, BatchNorm statistics 1e-6. A
+    per-shard BatchNorm, a lost gradient sum or a hand-over read early
+    misses them by orders of magnitude."""
+    import torch
+
+    n64 = max(2, case.batch // 4)
+    want = case.one_step(torch.float64, None, n64)
+    for form in ("serial", "streams"):
+        got = case.one_step(torch.float64, train_mesh(devs, form), n64)
+        case.hold(got, want, f"float64 {form} ", gradients=True)
+        print(f"parallel: unet_train_step_sharded over (data 2 x model 2) of "
+              f"{where}, {form} form, float64 on {n64} crops of {case.side}^2 "
+              f"({case.filters} filters): loss {got[0]:.12f} vs "
+              f"{want[0]:.12f} unsharded, worst gradient difference "
+              f"{case.worst_gradient(got, want):.3g} of its largest "
+              f"magnitude, parameters within 2 x lr, BatchNorm statistics "
+              f"within 1e-6, on {card}")
+
+
+def train_turns(par: ParallelRun, case: TrainCase, devs, name: str) -> tuple:
+    """10 bfloat16 steps a run of the step over ``train_mesh(devs)`` in
+    each form and of the unsharded step on ``case.dev``, each warmed by
+    one step, then three runs each in turns (serial, streams, unsharded,
+    streams, serial, unsharded, serial, streams, unsharded). The sharded
+    runs go through :meth:`ParallelRun.run` as ``name_serial`` and
+    ``name``, the step under ``set_sync_debug_mode("error")`` (a host
+    synchronisation fails the run); every loss finite. Returns ({form or
+    "unsharded": [seconds of its three runs]}, a function running two
+    more steps of the streams form, its mesh)."""
+    import torch
+
+    from tissue_image_processing_tpu_torch.models import train
+    from tissue_image_processing_tpu_torch.parallel import mesh as pmesh
+
+    runs, holders, losses = {}, {}, []
+    for form in ("serial", "streams"):
+        net, state, _ = case.fresh(torch.bfloat16)
+        mesh = train_mesh(devs, form)
+        sstate = pmesh.shard_params(mesh, state)
+        holder = types.SimpleNamespace(step=pmesh.unet_train_step_sharded(
+            mesh, net, sstate.optimizer), mesh=mesh)
+        xs = pmesh.shard_batch(mesh, case.bx)
+        holder.step(sstate, xs, case.by)   # warm: plans, streams, allocator
+
+        def ten(h=holder, st=sstate, x=xs, n=10):
+            for _ in range(n):
+                losses.append(h.step(st, x, case.by)[1])
+
+        holders[form], runs[form] = holder, ten
+    net, ustate, utx = case.fresh(torch.bfloat16)
+    ustep = train.make_train_step(net, utx)
+    ustep(ustate, case.bx, case.by)   # warm
+
+    def ten_unsharded():
+        for _ in range(10):
+            losses.append(ustep(ustate, case.bx, case.by)[1])
+
+    secs = {"serial": [], "streams": [], "unsharded": []}
+    for form in ("serial", "streams", "unsharded", "streams", "serial",
+                 "unsharded", "serial", "streams", "unsharded"):
+        if form == "unsharded":
+            secs[form].append(synced_seconds(ten_unsharded, case.dev)[1])
+            continue
+        key = name if form == "streams" else f"{name}_{form}"
+        secs[form].append(par.run(key, runs[form], [(holders[form], "step")])[1])
+    assert all(bool(torch.isfinite(loss)) for loss in losses)
+    return secs, (lambda: runs["streams"](n=2)), holders["streams"].mesh
+
+
+def steps_line(secs: dict) -> str:
+    """Steps/s of each form's 10-step runs: min / median / max, then the
+    runs in the order they ran."""
+    def one(form, runs):
+        rates = sorted(10 / s for s in runs)
+        return (f"{form} {rates[0]:.3f} / {rates[len(rates) // 2]:.3f} / "
+                f"{rates[-1]:.3f} steps/s (runs: "
+                + " / ".join(f"{10 / s:.3f}" for s in runs) + ")")
+    return "; ".join(one(form, runs) for form, runs in secs.items()) \
+        + " (min / median / max)"
+
+
+def trace_training(par: ParallelRun, fn, positions: int) -> None:
+    """One run of ``fn`` (two bfloat16 steps of the streams form) under the
+    profiler. The caller's stream is the one that ran the Adam step's
+    foreach kernels (``multi_tensor_apply_kernel``); every other busy
+    stream must be a position stream, ``positions`` of them, each busy.
+    Prints each one's busy device ms and device operations, the ms in
+    which two or more of them were busy (overlap) and its share of their
+    busy time, the caller's busy ms (gathers, sums, the optimizer) and the
+    device-busy share of the traced wall."""
+    adam = "multi_tensor_apply_kernel"
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build, prefix="smoke_trace_") as d:
+        path = str(Path(d) / "trace.json")
+        _, _, wall_ms, _ = device_profile(fn, rows=True, trace=path)
+        streams = stream_activity(path, [adam])
+        with open(path) as f:
+            names = collections.Counter(
+                (e["args"]["stream"], re.sub(r"<.*", "", e["name"])[-48:])
+                for e in json.load(f)["traceEvents"]
+                if e.get("cat") == "kernel" and "args" in e)
+    callers = [s for s, v in streams.items() if v["kernels"][adam]]
+    moving = {s: v for s, v in streams.items() if s not in callers}
+    assert len(callers) == 1 and len(moving) == positions, \
+        (callers, sorted(streams), names.most_common(40))
+    ops = {s: len(v["intervals"]) for s, v in sorted(moving.items())}
+    busy, overlapped = busy_and_overlap_ms(moving)
+    each = {s: round(sum(b - a for a, b in merged_us(v["intervals"])) / 1e3, 3)
+            for s, v in sorted(moving.items())}
+    assert min(each.values()) > 0, each
+    caller_ms = sum(b - a for a, b in merged_us(
+        streams[callers[0]]["intervals"])) / 1e3
+    all_busy, _ = busy_and_overlap_ms(streams)
+    print(f"parallel: traced 2 bfloat16 training steps (streams form): "
+          f"{positions} position streams besides the caller's, device "
+          f"operations by position stream (trace ids) {ops}, busy ms "
+          f"{each}; overlapped (two or more position streams at once) "
+          f"{overlapped:.3f} ms of {busy:.3f} ms busy ({overlapped / busy:.3f} "
+          f"share); the caller's stream (gathers, sums, Adam) busy "
+          f"{caller_ms:.3f} ms; device busy {all_busy:.3f} ms of "
+          f"{wall_ms:.3f} ms traced wall ({all_busy / wall_ms:.3f} share) on "
+          f"{par.card}")
+
+
+def parallel_training(par: ParallelRun, filters: int, batch: int,
+                      side: int) -> None:
+    """Step 5 of the "parallel" phase: ``unet_train_step_sharded`` over
+    (data 2 x model 2) of the virtual mesh with the training cell's recipe
+    against ``make_train_step``, one step each from the same state and
+    batch:
+
+    - in float32 with TF32 off (streams form): the loss, parameters and
+      BatchNorm statistics to the CPU tests' tolerances
+      (``tests/test_torch_train.py``: loss rel 1e-5, parameters 2 x lr,
+      statistics 1e-6); the gradients' difference is printed beside the
+      unsharded step's own difference between two runs (cuDNN's float32
+      kernels are not deterministic, and at this size their sums spread
+      past those tests' 1e-4 of the largest gradient: PERF.md section 6);
+    - in float64, each form (:func:`train_float64_holds`): all of those
+      tolerances, the gradients' included;
+
+    then 10 bfloat16 steps a run of the serial and streams forms and of
+    the unsharded step, three runs each in turns, the sharded steps under
+    ``set_sync_debug_mode("error")`` (:func:`train_turns`); on the card one
+    traced run of the streams form (:func:`trace_training`)."""
+    import torch
+
+    case = TrainCase(par.dev, filters, batch, side)
+    devs = par.devs[:4]
 
     def peak_gib() -> float:
         if not par.on_card:
@@ -3981,59 +4284,60 @@ def parallel_training(par: ParallelRun, filters: int, batch: int,
         return peak
 
     peak_gib()
-    got, want = one_step(torch.float32, True, batch), one_step(
-        torch.float32, False, batch)
-    again = one_step(torch.float32, False, batch)
-    hold(got, want, "float32 ", gradients=False)
+    got = case.one_step(torch.float32, train_mesh(devs), batch)
+    want = case.one_step(torch.float32, None, batch)
+    again = case.one_step(torch.float32, None, batch)
+    case.hold(got, want, "float32 ", gradients=False)
     print(f"parallel: unet_train_step_sharded over (data 2 x model 2), depth "
           f"2, {filters} filters, batch {batch}, {side}^2, float32 (TF32 "
-          f"off): loss {got[0]:.7f} vs {want[0]:.7f} unsharded, parameters "
-          f"within 2 x lr, BatchNorm statistics within 1e-6; worst gradient "
-          f"difference {worst_gradient(got, want):.3g} of its largest "
-          f"magnitude, the unsharded step against a second run of itself "
-          f"{worst_gradient(again, want):.3g}; peak memory {peak_gib():.2f} "
-          f"GiB")
+          f"off), streams form: loss {got[0]:.7f} vs {want[0]:.7f} "
+          f"unsharded, parameters within 2 x lr, BatchNorm statistics within "
+          f"1e-6; worst gradient difference "
+          f"{case.worst_gradient(got, want):.3g} of its largest magnitude, "
+          f"the unsharded step against a second run of itself "
+          f"{case.worst_gradient(again, want):.3g}; peak memory "
+          f"{peak_gib():.2f} GiB")
     del got, want, again
-    # float64 takes twice float32's memory: a quarter of the batch
-    n64 = max(2, batch // 4)
-    got, want = one_step(torch.float64, True, n64), one_step(
-        torch.float64, False, n64)
-    hold(got, want, "float64 ", gradients=True)
-    print(f"parallel: the same in float64 on {n64} crops: loss "
-          f"{got[0]:.12f} vs {want[0]:.12f}, worst gradient difference "
-          f"{worst_gradient(got, want):.3g} of its largest magnitude, "
-          f"parameters within 2 x lr, BatchNorm statistics within 1e-6; peak "
-          f"memory {peak_gib():.2f} GiB")
-    del got, want
+    train_float64_holds(case, devs, f"{len(set(devs))} card(s), "
+                        f"{len(devs)} positions", par.card)
+    print(f"parallel: float64 peak memory {peak_gib():.2f} GiB")
+    secs, two_steps, mesh = train_turns(par, case, devs, "train")
+    print(f"parallel: 10 bfloat16 training steps a run (depth 2, {filters} "
+          f"filters, batch {batch}, {side}^2) over (data 2 x model 2) of "
+          f"{len(devs)} positions, in turns, host syncs in the step "
+          f"{par.syncs.get('train', 0)} (streams) / "
+          f"{par.syncs.get('train_serial', 0)} (serial) under "
+          f"set_sync_debug_mode error: {steps_line(secs)} on {par.card}")
+    if par.on_card:
+        trace_training(par, two_steps, len(mesh._streams))
 
-    net, state, tx = fresh(torch.bfloat16)
-    sstate = pmesh.shard_params(tmesh, state)
-    holder = types.SimpleNamespace(step=pmesh.unet_train_step_sharded(
-        tmesh, net, sstate.optimizer))
-    xs = pmesh.shard_batch(tmesh, bx)
-    holder.step(sstate, xs, by)   # warm
-    losses = []
 
-    def ten_sharded():
-        for _ in range(10):
-            losses.append(holder.step(sstate, xs, by)[1])
+def train_cards(par: ParallelRun, filters: int, batch: int, side: int
+                ) -> None:
+    """The training step over (data 2 x model 2) of four distinct cards:
+    the float64 hold of each form against the unsharded step on card 0,
+    10 bfloat16 steps a run of each form in turns (syncs 0: a sync fails
+    the run), beside the same over four positions of card 0; where fewer
+    than four cards are visible, one line saying so."""
+    import torch
 
-    _, tsecs = par.run("train", ten_sharded, [(holder, "step")], mode="warn")
-    assert all(bool(torch.isfinite(loss)) for loss in losses)
-    del net, state, tx, sstate, holder, xs
-    ref_net, ref_state, ref_tx = fresh(torch.bfloat16)
-    ustep = train.make_train_step(ref_net, ref_tx)
-    ustep(ref_state, bx, by)   # warm
-
-    def ten_unsharded():
-        for _ in range(10):
-            ustep(ref_state, bx, by)
-
-    _, usecs = synced_seconds(ten_unsharded, dev)
-    print(f"parallel: 10 bfloat16 training steps (depth 2, {filters} "
-          f"filters, batch {batch}, {side}^2): {10 / tsecs:.3f} steps/s "
-          f"sharded over (data 2 x model 2), {10 / usecs:.3f} steps/s "
-          f"unsharded, on {card}")
+    cards = torch.cuda.device_count() if par.on_card else 0
+    if cards < 4:
+        print(f"parallel: the training step over (data 2 x model 2) of four "
+              f"distinct cards was not run: {cards} card(s) visible")
+        return
+    case = TrainCase(torch.device("cuda", 0), filters, batch, side)
+    devs = [torch.device("cuda", i) for i in range(4)]
+    train_float64_holds(case, devs, "four cards", par.card)
+    for where, d, name in (("4 positions of card 0", par.devs[:4], "train"),
+                           ("four cards", devs, "train_cards")):
+        secs, _, _ = train_turns(par, case, d, name)
+        print(f"parallel: 10 bfloat16 training steps a run (depth 2, "
+              f"{filters} filters, batch {batch}, {side}^2) over (data 2 x "
+              f"model 2) of {where}, host syncs in the step "
+              f"{par.syncs.get(name, 0)} (streams) / "
+              f"{par.syncs.get(name + '_serial', 0)} (serial): "
+              f"{steps_line(secs)} on {par.card}")
 
 
 def parallel_card_vs_cpu(par: ParallelRun) -> None:
@@ -4118,9 +4422,12 @@ def check_parallel(card: str, movie, device: str = "cuda", shards: int = 4,
        one float32 step (TF32 off) against ``make_train_step``'s within the
        CPU tests' tolerances but for the gradients, whose difference is
        printed beside the unsharded step's own run-to-run spread; one
-       float64 step on 8 crops within all of them; then 10 bfloat16 steps
-       of each (steps/s); its host synchronisations counted
-       (``set_sync_debug_mode("warn")``), not a gate;
+       float64 step of each form on 8 crops within all of them; then 10
+       bfloat16 steps a run of the serial and streams forms and of the
+       unsharded step, three runs each in turns (steps/s min / median /
+       max), the sharded step under ``set_sync_debug_mode("error")``; one
+       traced run of the streams form: its four position streams busy, the
+       overlap across them, the busy share;
     6. the card against the CPU on the CPU tests' tiny shapes;
     7. the host synchronisations counted by path, printed (0 in the four
        sharded paths, or the run has failed).
@@ -4151,8 +4458,8 @@ def check_parallel(card: str, movie, device: str = "cuda", shards: int = 4,
     if par.on_card:
         step("card_vs_cpu", parallel_card_vs_cpu, par)
         print(f"parallel: host synchronisations inside the shard bodies "
-              f"(set_sync_debug_mode error in the sharded paths, a sync "
-              f"fails the run; warn in the train step; tracker excluded): "
+              f"and the sharded train step (set_sync_debug_mode error, a "
+              f"sync fails the run; tracker excluded): "
               f"{par.syncs}; by source line: "
               f"{dict(par.sync_sites.most_common())}")
     print(f"parallel: phase {time.perf_counter() - t_phase:.1f} s on {card} "
@@ -4308,7 +4615,8 @@ def main(argv=()) -> int:
             "launches_cli": cli_launches.get(name, 0),
             "launches_cli_unet_int8": cli_unet_launches.get(name, 0),
             "launches_parallel": {path: got.get(name, 0) for path, got in
-                                  par_launches.items() if path != "train"},
+                                  par_launches.items()
+                                  if not path.startswith("train")},
             "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "library_ms": r["library_ms"], **at_unet,

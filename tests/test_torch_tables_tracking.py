@@ -164,7 +164,9 @@ def test_track_movie_exact_and_resumes_from_jax_carry():
     np.testing.assert_array_equal(ids2.numpy(), want[h:])
 
 
-def test_phase_correlation_and_drift_chain():
+@pytest.mark.parametrize("upsample_factor", [1, 100])
+@pytest.mark.parametrize("normalization", ["phase", None])
+def test_phase_correlation_and_drift_chain(normalization, upsample_factor):
     rng = np.random.default_rng(8)
     base = rng.random((96, 128)).astype(np.float32)
     from scipy import ndimage as ndi
@@ -172,9 +174,11 @@ def test_phase_correlation_and_drift_chain():
     frames = np.stack([ndi.shift(base, (0.37 * i, -0.61 * i), mode="wrap")
                        for i in range(4)]).astype(np.float32)
     want = np.asarray(j_pcc(jnp.asarray(frames[0]), jnp.asarray(frames[2]),
-                            upsample_factor=100))
+                            upsample_factor=upsample_factor,
+                            normalization=normalization))
     got = t_pcc(torch.from_numpy(frames[0]), torch.from_numpy(frames[2]),
-                upsample_factor=100).numpy()
+                upsample_factor=upsample_factor,
+                normalization=normalization).numpy()
     np.testing.assert_allclose(got, want, atol=1e-4)
     want = np.asarray(jtr.compute_drift_chain(jnp.asarray(frames)))
     got = ttr.compute_drift_chain(torch.from_numpy(frames)).numpy()

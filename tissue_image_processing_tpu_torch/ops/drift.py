@@ -42,13 +42,18 @@ def _upsampled_dft(data: torch.Tensor, region: int, upsample: float,
 
 
 def phase_cross_correlation(reference: torch.Tensor, moving: torch.Tensor,
-                            upsample_factor: int = 1) -> torch.Tensor:
+                            upsample_factor: int = 1,
+                            normalization: Optional[str] = "phase"
+                            ) -> torch.Tensor:
     """(..., 2) shift (dy, dx) to apply to ``moving`` to register it with
-    ``reference`` (skimage sign convention), phase-normalised."""
+    ``reference`` (skimage sign convention). ``normalization="phase"``
+    divides the cross-power spectrum by its magnitude; any other value
+    (None) correlates it as it is."""
     a = reference.to(torch.float32)
     b = moving.to(torch.float32)
     R = torch.fft.fft2(a) * torch.conj(torch.fft.fft2(b))
-    R = R / torch.clamp(R.abs(), min=1e-20)
+    if normalization == "phase":
+        R = R / torch.clamp(R.abs(), min=1e-20)
     cc = torch.fft.ifft2(R)
     H, W = a.shape[-2:]
     peak = cc.abs().flatten(-2).argmax(dim=-1)

@@ -21,7 +21,10 @@ card, and one process can drive every card of a host. So
   virtual mesh on one card gets one stream a position, so its positions
   overlap as separate cards would); on the CPU the positions run in
   order. A shard body makes no host synchronisation, so the calling thread
-  queues every position's body without waiting for the card.
+  queues every position's body without waiting for the card. The
+  training step's per-position work (a conv with what follows it, the
+  BatchNorm sums, the normalisation, dropout, the cross-entropy) runs
+  through the runner too, one call a layer.
 
 The runner is fork-join on the device. At entry each position's stream
 waits on an event recorded on the caller's current stream of its device;
@@ -32,6 +35,13 @@ through one of those events; that holds on a virtual mesh too, where
 ``_move`` hands the same tensor to another stream. A tensor that crosses
 the runner's boundary, in or out, is ``record_stream``-ed on the stream
 that uses it, so the caching allocator does not reuse its memory early.
+
+The backward pass needs no runner: PyTorch runs each backward op on the
+stream of its forward op, syncs the gradients that cross streams, and at
+the end makes the caller's streams wait for the gradients, since
+``loss.backward()`` is called on the caller's stream of the lead device.
+So the optimizer's step, on the caller's streams, reads finished
+gradients without a host synchronisation.
 
 Axes as in the JAX package: ``data`` (frames / batch) and ``model`` (the
 U-Net's conv output channels). :func:`unet_train_step_sharded` is data
@@ -54,7 +64,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tissue_image_processing_tpu_torch._device import resolve_device
+from tissue_image_processing_tpu_torch._device import (
+    host_to_device, resolve_device)
 from tissue_image_processing_tpu_torch.models.train import TrainState
 from tissue_image_processing_tpu_torch.models.unet import (
     _conv, _full_float32_convs)
@@ -104,6 +115,11 @@ class Mesh:
                 device=self.devices[pos])
         return stream
 
+    def _streamed(self, devs) -> bool:
+        """Whether :meth:`run` gives the positions on ``devs`` streams of
+        their own: in the ``"streams"`` form, on cards."""
+        return self._form == "streams" and all(d.type == "cuda" for d in devs)
+
     def run(self, fn, *args, positions=None) -> list:
         """``[fn(*a) for a in zip(*args)]``: ``fn`` once for each position of
         ``positions`` (index tuples of ``devices``; default every position,
@@ -123,7 +139,7 @@ class Mesh:
             raise ValueError(f"{len(per_pos)} argument sets for "
                              f"{len(positions)} mesh positions")
         devs = [self.devices[p] for p in positions]
-        if self._form == "serial" or any(d.type != "cuda" for d in devs):
+        if not self._streamed(devs):
             return [_call(pos, fn, a) for pos, a in zip(positions, per_pos)]
         streams = [self._stream(p) for p in positions]
         for dev, stream, a in zip(devs, streams, per_pos):
@@ -259,13 +275,16 @@ def axis_index(mesh: Mesh, axis_name: str, position: Tuple[int, ...]) -> int:
 
 def shard_batch(mesh: Mesh, batch) -> List[torch.Tensor]:
     """A (B, ...) batch (numpy or tensor) split along B over the ``data``
-    axis: one slice per data position, on that row's first device."""
+    axis: one slice per data position, on that row's first device. A host
+    batch goes onto a card through pinned memory, on the caller's stream,
+    so the upload makes no host synchronisation."""
     t = torch.as_tensor(batch)
     rows = mesh.devices.shape[mesh.axis_names.index("data")]
     if t.shape[0] % rows:
         raise ValueError(f"batch {t.shape[0]} does not divide over the mesh's "
                          f"data axis {rows}")
-    return [_move(s, mesh.devices[d, 0]) for d, s in
+    move = host_to_device if t.device.type == "cpu" else _move
+    return [move(s, mesh.devices[d, 0]) for d, s in
             enumerate(torch.chunk(t, rows, 0))]
 
 
@@ -361,9 +380,16 @@ def _shard_train_state(mesh: Mesh, state: TrainState) -> TrainState:
 
 def _pieces(params: ShardedParams, key: str, d: int) -> List[torch.Tensor]:
     """The pieces of ``key`` for data row ``d``: each moved (through
-    autograd) to row ``d``'s device of its model position."""
-    return [_move(p, params.mesh.devices[d, m])
-            for m, p in enumerate(params.shards[key])]
+    autograd) to row ``d``'s device of its model position, on the
+    caller's streams; the runner hands them to the positions. A piece
+    already there is viewed (an autograd node on the caller's stream), so
+    every use of a parameter reaches its gradient's accumulation through
+    the caller's stream, not through whichever position used it first."""
+    out = []
+    for m, p in enumerate(params.shards[key]):
+        moved = _move(p, params.mesh.devices[d, m])
+        out.append(moved.view_as(p) if moved is p else moved)
+    return out
 
 
 def _gathered(pieces: Sequence[torch.Tensor], devs) -> List[torch.Tensor]:
@@ -375,10 +401,23 @@ def _gathered(pieces: Sequence[torch.Tensor], devs) -> List[torch.Tensor]:
     return all_gather(pieces, axis=1)
 
 
+def _relu_and_sums(y: torch.Tensor):
+    """ReLU of a conv piece and its per-channel sums of x and x^2 over
+    (N, H, W): what training-mode BatchNorm reduces over ``data``."""
+    y = torch.relu(y)
+    return y, y.sum(dim=(0, 2, 3)), (y * y).sum(dim=(0, 2, 3))
+
+
 class _TensorParallelUNet:
     """The training-mode forward of a ``UNet`` over a (data x model) mesh:
     ``acts[d][m]`` is data row ``d``'s activation on its model position
-    ``m`` (whole when gathered, a channel piece when split)."""
+    ``m`` (whole when gathered, a channel piece when split).
+
+    Each layer's per-position work runs in one :meth:`each` call (on the
+    card, on the position's stream); the collectives between them
+    (gathers, the BatchNorm and loss sums, the parameter pieces' moves)
+    run on the caller's streams, so every hand-over goes through the
+    runner's events."""
 
     def __init__(self, model: nn.Module, params: ShardedParams):
         if model.up_kind != "convt":
@@ -387,42 +426,68 @@ class _TensorParallelUNet:
         self.mesh = params.mesh
         self.rows = self.mesh.devices.shape[0]
 
-    def conv(self, full, key: str, transpose: bool = False):
-        """``key``'s conv on each row's whole input: output channel piece m
-        on model position m (one piece when replicated)."""
-        out = []
-        for d in range(self.rows):
-            ws = _pieces(self.params, key + ".weight", d)
-            bs = _pieces(self.params, key + ".bias", d)
-            out.append([_conv(full[d][m], w, b, self.model.dtype,
-                              transpose=transpose)
-                        for m, (w, b) in enumerate(zip(ws, bs))])
+    def each(self, fn, *grids) -> list:
+        """``fn(d, m, *elements)`` at each position (d, m) of the ragged
+        grid ``grids[0]`` (``grid[d][m]``; a row may hold one piece or one
+        a model position), given that position's element of each grid,
+        through :meth:`Mesh.run`. Returns the results as a grid."""
+        positions = [(d, m) for d, row in enumerate(grids[0])
+                     for m in range(len(row))]
+        flat = self.mesh.run(
+            fn, [d for d, _ in positions], [m for _, m in positions],
+            *([g[d][m] for d, m in positions] for g in grids),
+            positions=positions)
+        out = [[] for _ in grids[0]]
+        for (d, _), r in zip(positions, flat):
+            out[d].append(r)
         return out
 
-    def batch_norm(self, ys, key: str):
-        """Training-mode BatchNorm of channel pieces over the GLOBAL batch:
-        per-piece sums reduced over ``data``; the running statistics move
-        as ``models/unet.py:_batch_norm_train`` moves them."""
+    def pieces(self, key: str) -> list:
+        return [_pieces(self.params, key, d) for d in range(self.rows)]
+
+    def conv(self, full, key: str, transpose: bool = False, then=None,
+             extra=()):
+        """``key``'s conv on each row's whole input: output channel piece m
+        on model position m (one piece when replicated), then
+        ``then(y, *e)`` in the same position body (``e``: the position's
+        element of each grid of ``extra``)."""
+        ws, bs = self.pieces(key + ".weight"), self.pieces(key + ".bias")
+        dtype = self.model.dtype
+
+        def body(d, m, x, w, b, *e):
+            y = _conv(x, w, b, dtype, transpose=transpose)
+            return y if then is None else then(y, *e)
+
+        return self.each(body, [row[:len(w)] for row, w in zip(full, ws)],
+                         ws, bs, *extra)
+
+    def batch_norm(self, sums, key: str):
+        """Training-mode BatchNorm of channel pieces over the GLOBAL batch,
+        cast to the model's dtype: ``sums[d][m]`` is (piece, its sum, its
+        sum of squares), the sums reduced over ``data``; the running
+        statistics move as ``models/unet.py:_batch_norm_train`` moves
+        them, on shard m's position of the first data row."""
         bn = self.model.get_submodule(key)
-        n_pieces = len(ys[0])
-        count = sum(y[0].numel() // y[0].shape[1] for y in ys)
-        out = [[None] * n_pieces for _ in ys]
-        for m in range(n_pieces):
-            col = [ys[d][m] for d in range(self.rows)]
-            s1 = psum([y.sum(dim=(0, 2, 3)) for y in col])
-            s2 = psum([(y * y).sum(dim=(0, 2, 3)) for y in col])
-            for d, y in enumerate(col):
-                mean = s1[d] / count
-                var = (s2[d] / count - mean * mean).clamp_min(0.0)
-                if d == 0:
-                    self._update_running(key, m, mean, var, bn.momentum)
-                w = _pieces(self.params, key + ".weight", d)[m]
-                b = _pieces(self.params, key + ".bias", d)[m]
-                scale = w * torch.rsqrt(var + bn.eps)
-                out[d][m] = ((y - mean[None, :, None, None])
-                             * scale[None, :, None, None]
-                             + b[None, :, None, None])
-        return out
+        count = sum(row[0][0].numel() // row[0][0].shape[1] for row in sums)
+        totals = [[None] * len(row) for row in sums]
+        for m in range(len(sums[0])):
+            s1 = psum([row[m][1] for row in sums])
+            s2 = psum([row[m][2] for row in sums])
+            for d in range(self.rows):
+                totals[d][m] = (s1[d], s2[d])
+
+        def body(d, m, piece, total, w, b):
+            y = piece[0]
+            mean = total[0] / count
+            var = (total[1] / count - mean * mean).clamp_min(0.0)
+            if d == 0:
+                self._update_running(key, m, mean, var, bn.momentum)
+            scale = w * torch.rsqrt(var + bn.eps)
+            return ((y - mean[None, :, None, None]) * scale[None, :, None, None]
+                    + b[None, :, None, None]).to(self.model.dtype)
+
+        return self.each(body, sums, totals, self.pieces(key + ".weight"),
+                         self.pieces(key + ".bias"))
 
     def _update_running(self, key, m, mean, var, momentum):
         with torch.no_grad():
@@ -432,32 +497,31 @@ class _TensorParallelUNet:
             if m == 0:
                 self.params.shards[f"{key}.num_batches_tracked"][0].add_(1)
 
-    def pointwise(self, pieces, fn):
-        return [[fn(p) for p in row] for row in pieces]
-
     def gather(self, pieces):
         return [_gathered(row, self.mesh.devices[d])
                 for d, row in enumerate(pieces)]
 
     def double_conv(self, full, k: int):
-        block = self.model.blocks[k]
+        block, dtype = self.model.blocks[k], self.model.dtype
         for i in range(2):
-            y = self.pointwise(self.conv(full, f"blocks.{k}.conv{i}"),
-                               torch.relu)
+            conv = f"blocks.{k}.conv{i}"
             if block.norm == "bn":
-                y = self.batch_norm(y, f"blocks.{k}.bn{i}")
+                y = self.batch_norm(self.conv(full, conv, then=_relu_and_sums),
+                                    f"blocks.{k}.bn{i}")
             elif block.norm == "shift":
-                key = f"blocks.{k}.shift{i}"
-                y = [[p + _pieces(self.params, key, d)[m][None, :, None, None]
-                      for m, p in enumerate(row)] for d, row in enumerate(y)]
-            y = self.pointwise(y, lambda t: t.to(self.model.dtype))
+                y = self.conv(full, conv, then=lambda t, s: (
+                    torch.relu(t) + s[None, :, None, None]).to(dtype),
+                    extra=(self.pieces(f"blocks.{k}.shift{i}"),))
+            else:
+                y = self.conv(full, conv,
+                              then=lambda t: torch.relu(t).to(dtype))
             if i == 0:
                 full = self.gather(y)
         return y
 
     def forward(self, xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-        """(b, X, Y, C) inputs by data row -> (b, X, Y, classes) softmax
-        outputs by data row, on each row's first device."""
+        """(b, X, Y, C) inputs by data row -> (b, classes, X, Y) logits by
+        data row, whole on each row's first device."""
         model = self.model
         drop = lambda t: F.dropout(t, model.dropout_rate, True)  # noqa: E731
         full = self.gather([[x.to(model.dtype).permute(0, 3, 1, 2)]
@@ -466,21 +530,18 @@ class _TensorParallelUNet:
         for k in range(model.depth):
             y = self.double_conv(full, k)
             skips.append(y)
-            full = self.gather(self.pointwise(
-                y, lambda t: drop(F.max_pool2d(t, 2))))
+            full = self.gather(self.each(
+                lambda d, m, t: drop(F.max_pool2d(t, 2)), y))
         y = self.double_conv(full, model.depth)
         for j in range(model.depth):
-            up = self.pointwise(self.conv(self.gather(y), f"ups.{j}",
-                                          transpose=True),
-                                lambda t: drop(t.to(model.dtype)))
-            skip = self.pointwise(skips.pop(), drop)
-            ups, sks = self.gather(up), self.gather(skip)
-            full = [[torch.cat([u, s], 1) for u, s in zip(ur, sr)]
-                    for ur, sr in zip(ups, sks)]
+            up = self.conv(self.gather(y), f"ups.{j}", transpose=True,
+                           then=lambda t: drop(t.to(model.dtype)))
+            skip = self.each(lambda d, m, t: drop(t), skips.pop())
+            full = self.each(lambda d, m, u, s: torch.cat([u, s], 1),
+                             self.gather(up), self.gather(skip))
             y = self.double_conv(full, model.depth + 1 + j)
-        logits = self.gather(self.conv(self.gather(y), "head"))
-        return [torch.softmax(row[0], dim=1).permute(0, 2, 3, 1)
-                for row in logits]
+        return [row[0] for row in self.gather(
+            self.conv(self.gather(y), "head"))]
 
 
 def unet_train_step_sharded(mesh: Mesh, model: nn.Module, tx):
@@ -494,7 +555,14 @@ def unet_train_step_sharded(mesh: Mesh, model: nn.Module, tx):
     the :class:`ShardedParams`, ``batch_x`` a (B, X, Y, C) batch or its
     :func:`shard_batch` slices, ``batch_y`` the (B, X, Y, 2) one-hot
     targets; loss = mean categorical cross-entropy with eps 1e-7 inside
-    the log (on the lead device). Dropout draws from PyTorch's generator."""
+    the log (on the lead device). Dropout draws from PyTorch's generator,
+    the positions in the same order in both forms of the mesh, so both
+    draw the same masks.
+
+    On the card the step makes no host synchronisation: each position's
+    forward runs on its stream (:meth:`Mesh.run`), the backward on the
+    streams of the forward ops and the Adam step on the caller's streams
+    (module docstring)."""
     def step(state, batch_x, batch_y):
         xs = (batch_x if isinstance(batch_x, (list, tuple))
               else shard_batch(mesh, torch.as_tensor(batch_x,
@@ -503,11 +571,17 @@ def unet_train_step_sharded(mesh: Mesh, model: nn.Module, tx):
         xs = [x.to(torch.float32) for x in xs]
         net = _TensorParallelUNet(model, state.model)
         tx.zero_grad(set_to_none=True)
-        outs = net.forward(xs)
+        logits = net.forward(xs)
         n = sum(y.numel() // y.shape[-1] for y in ys)
-        ce = [-(y.to(o.device) * torch.log(o + 1e-7)).sum() for o, y in
-              zip(outs, ys)]
-        loss = psum(ce)[0] / n
+
+        def cross_entropy(d, m, t, y):
+            o = torch.softmax(t, dim=1).permute(0, 2, 3, 1)
+            return -(y * torch.log(o + 1e-7)).sum()
+
+        ce = net.each(cross_entropy, [[t] for t in logits], [[y] for y in ys])
+        loss = psum([row[0] for row in ce])[0] / n
+        # on the caller's stream of the lead device, after the sum: the
+        # backward syncs the gradients with the caller's streams
         with _full_float32_convs(mesh.lead):
             loss.backward()
         tx.step()
