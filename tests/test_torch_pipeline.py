@@ -14,9 +14,11 @@ drifts agree to 1e-4 (see ``passthrough_variables`` for why the comparison
 can be exact); with ``{"quantized": True}`` both packages run the int8
 forward on the same int8 parameters (from the JAX quantizer), whole and
 chunked, under the watershed branch's criteria. Also: the package imports no
-JAX, and asking for the card without one raises.
+JAX, asking for the card without one raises, the stages are profiler spans
+that agree with ``timings``, and the movie's uploaded bytes are counted.
 """
 
+import collections
 import subprocess
 import sys
 
@@ -35,7 +37,7 @@ from tissue_image_processing_tpu_torch.utils.state import (
     quant_params_from_jax, unet_state_from_flax)
 from tissue_image_processing_tpu_torch.core.pipeline import (
     movie_pipeline as t_pipe, movie_pipeline_chunked as t_pipe_chunked)
-from tissue_image_processing_tpu_torch import resolve_device
+from tissue_image_processing_tpu_torch import _device, resolve_device
 
 # one intra-op thread: the test workers share the cores with each other
 # and with XLA's device threads
@@ -268,6 +270,65 @@ def test_z_stack_timings_include_projection(zcase):
     assert sorted(timings) == sorted(["upload", "project", "segment", "tables",
                                       "drift", "adaptive_radii", "track"])
     np.testing.assert_array_equal(got["labels"].numpy(), whole["labels"].numpy())
+
+
+def _profiled(run):
+    """``run()`` under the CPU profiler inside a ``test.call`` range: its
+    result, the thread ids of that range, and the ``stage.*`` events as
+    (name, seconds, thread id)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with record_function("test.call"):
+            out = run()
+    events = list(prof.profiler.kineto_results.events())
+    tids = {ev.start_thread_id() for ev in events if ev.name() == "test.call"}
+    stages = [(ev.name(), ev.duration_ns() * 1e-9, ev.start_thread_id())
+              for ev in events if ev.name().startswith("stage.")]
+    return out, tids, stages
+
+
+@pytest.mark.parametrize("case", ["z_stack", "unet"])
+def test_stage_spans_on_the_profiler_clock(movie, case):
+    """With ``timings`` every stage is a ``stage.<key>`` event on the
+    calling thread whose summed length is the stage's seconds; without
+    ``timings`` there is none. The run counts the movie's host bytes
+    uploaded: every frame of a Z > 1 movie, every channel's plane of a
+    Z == 1 movie on the U-Net branch."""
+    if case == "z_stack":
+        mv, kw = _zmovie(False), KW
+        uploaded = sum(mv[t].nbytes for t in range(mv.shape[0]))
+    else:
+        mv, kw = movie, dict(KW, unet=_unet_configs()[1])
+        uploaded = mv[:, :, 0].nbytes
+    timings = {}
+    _device.reset_launches()
+    _, tids, stages = _profiled(
+        lambda: t_pipe(mv, device="cpu", timings=timings, **kw))
+    assert _device.COUNTS["upload_bytes"] == uploaded
+    assert len(tids) == 1 and {tid for *_, tid in stages} == tids
+    summed = collections.Counter()
+    for name, seconds, _ in stages:
+        summed[name[len("stage."):]] += seconds
+    assert set(summed) == set(timings)
+    for key, seconds in timings.items():
+        assert abs(summed[key] - seconds) <= 0.1 * seconds + 1e-3, (
+            key, summed[key], seconds)
+    _, _, stages = _profiled(lambda: t_pipe(mv, device="cpu", **kw))
+    assert stages == []
+
+
+@pytest.mark.parametrize("source", ["numpy", "tensor"])
+def test_upload_bytes_count_the_host_bytes(movie, source):
+    """The watershed branch on a Z == 1 movie uploads the reference
+    channel's plane alone; a movie already a tensor on the device counts
+    nothing."""
+    mv = movie[:3]
+    _device.reset_launches()
+    t_pipe(mv if source == "numpy" else torch.from_numpy(mv), device="cpu",
+           **KW)
+    want = mv[:, [0], 0].nbytes if source == "numpy" else 0
+    assert _device.COUNTS["upload_bytes"] == want
 
 
 @pytest.mark.cuda

@@ -237,17 +237,13 @@ def test_runtime_trace_timer_and_metrics(tmp_path):
     log_dir = str(tmp_path / "trace")
     with runtime.trace(log_dir) as prof:
         x = torch.arange(4096, dtype=torch.float32).reshape(64, 64)
-        y = (x @ x).sum()
+        (x @ x).sum()
     traces = glob.glob(os.path.join(log_dir, "*.json"))
     assert len(traces) == 1
     with open(traces[0]) as f:
         events = json.load(f)["traceEvents"]
     assert any("aten::mm" in str(e.get("name")) for e in events)
     assert any("aten::mm" in e.key for e in prof.key_averages())
-    timer = runtime.Timer()
-    with timer.stage("sum", result=y):
-        pass
-    assert set(timer.stages) == {"sum"} and "sum=" in timer.report()
     metrics = runtime.StageMetrics(stream=None, run="r")
     with metrics.stage("a", n=1):
         pass

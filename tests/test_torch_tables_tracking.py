@@ -9,11 +9,14 @@ the nearest-pixel tracker are exact on the same inputs, including a resume
 from a JAX-produced carry converted with ``utils/state.py``; drifts are
 quantised to 1/64 px so running sums are exact in any summation order. Phase
 correlation, the drift chain, the stage-prior refinement and the local drift
-field agree to 1e-4 px.
+field agree to 1e-4 px. The port alone: the auction's rounds and the
+adaptive radii's solves are counted, and counts from two threads all land.
 """
 
 import dataclasses
 import os
+import sys
+import threading
 
 import numpy as np
 import jax.numpy as jnp
@@ -29,6 +32,7 @@ from tissue_image_processing_tpu.ops.drift import (
     phase_cross_correlation as j_pcc)
 from tissue_image_processing_tpu.ops.regionprops import (
     perimeter_map as j_perimeter_map)
+from tissue_image_processing_tpu_torch import _device
 from tissue_image_processing_tpu_torch.core import cell_table as tct
 from tissue_image_processing_tpu_torch.core import tracking as ttr
 from tissue_image_processing_tpu_torch.ops.drift import (
@@ -113,6 +117,66 @@ def test_auction_assignment_exact():
     got = ttr.auction_assignment(torch.from_numpy(ben), torch.from_numpy(pm),
                                  torch.from_numpy(om), eps=1e-2).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+def test_auction_counts_its_rounds():
+    """Two persons whose best objects differ: both win in the first round,
+    and the second finds no bidder."""
+    ben = torch.tensor([[5.0, 1.0], [1.0, 5.0]])
+    every = torch.ones(2, dtype=torch.bool)
+    _device.reset_launches()
+    got = ttr.auction_assignment(ben, every, every)
+    assert got.tolist() == [0, 1]
+    assert _device.COUNTS["auction_rounds"] == 2
+
+
+@pytest.mark.parametrize("per_cell", [True, False])
+def test_adaptive_ranges_count_their_solves(per_cell):
+    """Three frames of five cells (fewer than ``subnet_limit``), each 2 px
+    from a cell of the frame before: one solve a linked frame, none
+    shrunk."""
+    T, N = 3, 8
+    base = np.array([[10, 10], [10, 60], [60, 10], [60, 60], [35, 35]],
+                    np.float32)
+    cy = np.zeros((T, N), np.float32)
+    cx = np.zeros((T, N), np.float32)
+    mask = np.zeros((T, N), bool)
+    for t in range(T):
+        cy[t, :5], cx[t, :5], mask[t, :5] = base[:, 0] + 2 * t, base[:, 1], True
+    area = np.full((T, N), 100.0, np.float32)
+    _device.reset_launches()
+    ttr.adaptive_effective_ranges(cy, cx, area, mask, per_cell=per_cell)
+    assert _device.COUNTS["radii_solves"] == 2
+
+
+def test_reset_launches_zeroes_counts():
+    _device.count("upload_bytes", 7)
+    _device.reset_launches()
+    assert not _device.COUNTS
+
+
+def test_counts_from_two_threads_all_land():
+    n = 20000
+    start = threading.Barrier(2)
+
+    def work():
+        start.wait(timeout=30)
+        for _ in range(n):
+            _device.count("threads", 1)
+    _device.reset_launches()
+    threads = [threading.Thread(target=work) for _ in range(2)]
+    prev = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(prev)
+    assert not any(t.is_alive() for t in threads)
+    assert _device.COUNTS["threads"] == 2 * n
+    _device.reset_launches()
 
 
 def _tracking_inputs(T=24):

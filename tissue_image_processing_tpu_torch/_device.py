@@ -8,14 +8,17 @@ so an edited source is rebuilt and a stale library is never loaded.
 Every kernel wrapper adds the number of kernels it launched to
 ``LAUNCHES[name]``; the blur, launched at more than one shape on a path, also
 to ``BLUR_LAUNCHES[(Z, Y, X, tz, ty, tx)]`` and ``BLUR_FORMS[form]``, and
-the int8 conv, which has three forms, to ``CONV_LAUNCHES[form]``.
-``reset_launches()`` zeroes the counts so a caller can show that a run went
-through the kernels.
+the int8 conv, which has three forms, to ``CONV_LAUNCHES[form]``. Work that
+is not a kernel launch is counted in ``COUNTS[name]`` by :func:`count`
+(``upload_bytes``, ``auction_rounds``, ``radii_solves``), once for each
+call of the counting function. ``reset_launches()`` zeroes every count so a caller
+can show that a run went through the kernels.
 
 :func:`launch` runs a kernel under its tensor's device, on that device's
 current stream, so a shard on any card of a mesh launches there. A caller
-may launch from several host threads: :func:`count_launch` adds under a
-lock, and libraries are built and loaded under another.
+may launch from several host threads: :func:`count_launch` and
+:func:`count` add under a lock, and libraries are built and loaded under
+another.
 """
 
 from __future__ import annotations
@@ -32,10 +35,10 @@ from typing import Dict, Iterable, Optional, Union
 import torch
 
 __all__ = ["LAUNCHES", "BLUR_LAUNCHES", "BLUR_FORMS", "CONV_LAUNCHES",
-           "KERNEL_SOURCES", "resolve_device", "build_kernels", "load_library",
-           "reset_launches", "count_launch", "check_cuda", "launch", "ptr",
-           "stream_ptr", "require_cuda_tensor", "host_to_device",
-           "host_constant", "host_floats", "to_host"]
+           "COUNTS", "KERNEL_SOURCES", "resolve_device", "build_kernels",
+           "load_library", "reset_launches", "count_launch", "count",
+           "check_cuda", "launch", "ptr", "stream_ptr", "require_cuda_tensor",
+           "host_to_device", "host_constant", "host_floats", "to_host"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 DEFAULT_BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
@@ -55,6 +58,8 @@ BLUR_LAUNCHES: collections.Counter = collections.Counter()
 BLUR_FORMS: collections.Counter = collections.Counter()
 # conv3x3_s8 launches by form ("tensor_core", "first_conv", "generic")
 CONV_LAUNCHES: collections.Counter = collections.Counter()
+# work other than launches: bytes uploaded, auction rounds, radii solves
+COUNTS: collections.Counter = collections.Counter()
 _COUNT_LOCK = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 _BUILD_LOCK = threading.RLock()
@@ -131,6 +136,7 @@ def reset_launches() -> None:
         BLUR_LAUNCHES.clear()
         BLUR_FORMS.clear()
         CONV_LAUNCHES.clear()
+        COUNTS.clear()
 
 
 def count_launch(name: str, n: int = 1, *by) -> None:
@@ -141,6 +147,14 @@ def count_launch(name: str, n: int = 1, *by) -> None:
         LAUNCHES[name] += n
         for counter, key in by:
             counter[key] += n
+
+
+def count(name: str, n: int) -> None:
+    """Add ``n`` to ``COUNTS[name]`` under the launch counters' lock. A
+    counting site tallies locally and calls this once a call, never once an
+    iteration."""
+    with _COUNT_LOCK:
+        COUNTS[name] += n
 
 
 def _nvcc() -> str:

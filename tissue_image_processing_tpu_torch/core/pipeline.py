@@ -31,7 +31,7 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
-from tissue_image_processing_tpu_torch._device import resolve_device
+from tissue_image_processing_tpu_torch._device import count, resolve_device
 from tissue_image_processing_tpu_torch.core.cell_table import (
     CellTable, frame_cellinfo_checked, stack_tables)
 from tissue_image_processing_tpu_torch.core.tracking import (
@@ -62,24 +62,44 @@ def _flood_batch(T: int, batch: int) -> int:
 @contextlib.contextmanager
 def _span(timings: Optional[Dict[str, float]], name: str, dev: torch.device):
     """Add the host-clock seconds of the block to ``timings[name]``, the
-    device synchronized on entry and exit; a no-op when ``timings`` is None."""
+    device synchronized on entry and exit; a no-op when ``timings`` is None
+    (no synchronisation, no profiler event).
+
+    With ``timings`` the block is also a ``stage.<name>`` event on the
+    profiler's host timeline, opened after the entry synchronisation and
+    closed after the exit one: it covers the interval that ``timings``
+    adds up, and every kernel and copy of the stage lies inside it. The
+    event is a ``_RecordFunctionFast`` range, not ``record_function``:
+    the latter's user scope also leaves a device-side copy of the range in
+    the profiler's results, which a reader of device events takes for a
+    kernel as long as the stage. Stages are the only such spans: a span
+    around a whole call or a group of stages would become the host's one
+    outermost operation, and ``benchmark/trace.py`` lays idle gaps and
+    copies to outermost operations only, so it would hide the stages."""
     if timings is None:
         yield
         return
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
-    yield
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    with torch._C._profiler._RecordFunctionFast(f"stage.{name}"):
+        yield
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
     timings[name] = timings.get(name, 0.0) + time.perf_counter() - t0
 
 
 def _upload(x, device: torch.device, dtype=None) -> torch.Tensor:
+    """``x`` (numpy or a tensor) on ``device`` as ``dtype``; its bytes, as
+    given, are added to ``COUNTS["upload_bytes"]`` unless it is already a
+    tensor on a device of that kind."""
     if isinstance(x, torch.Tensor):
+        if x.device.type != torch.device(device).type:
+            count("upload_bytes", x.nbytes)
         return x.to(device=device, dtype=dtype)
-    return torch.from_numpy(np.ascontiguousarray(x)).to(device=device,
-                                                        dtype=dtype)
+    x = np.ascontiguousarray(x)
+    count("upload_bytes", x.nbytes)
+    return torch.from_numpy(x).to(device=device, dtype=dtype)
 
 
 def _projections(movie, reference_channel: int, device: torch.device,
@@ -241,7 +261,10 @@ def movie_pipeline(movie, *, reference_channel: int = 0,
     A ``timings`` dict receives the seconds of each stage (upload, project
     when Z > 1, segment — or normalize, unet and postprocess on the U-Net
     branch — tables, drift, adaptive_radii, track), each ending in a device
-    synchronize."""
+    synchronize, and makes each stage a ``stage.<name>`` event of the
+    profiler (``_span``): a call with ``timings={}`` inside
+    ``utils/runtime.trace()`` gives a Chrome trace in which each stage is a
+    ``stage.*`` range over its kernels and copies."""
     _check_movie(movie.shape)
     dev = resolve_device(device)
     segment = _segmenter(dev, unet, reference_channel, threshold, std,

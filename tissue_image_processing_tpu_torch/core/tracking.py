@@ -22,7 +22,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from tissue_image_processing_tpu_torch._device import resolve_device, to_host
+from tissue_image_processing_tpu_torch._device import (
+    count, resolve_device, to_host)
 from tissue_image_processing_tpu_torch._numerics import fma_f32
 from tissue_image_processing_tpu_torch.ops.drift import phase_cross_correlation
 
@@ -49,7 +50,11 @@ def auction_assignment(benefit: torch.Tensor, person_mask: torch.Tensor,
     allowed); staying unassigned has value 0. Each person bids only on its
     ``cand_k`` (default 8) best objects; each eviction doubles that person's
     eps (capped at 1024 eps). Returns (M,) object index per person, -1 if
-    unassigned. See the JAX version's docstring for the design record."""
+    unassigned. See the JAX version's docstring for the design record.
+
+    Each call adds its rounds, the last one (no bidder left, or the
+    ``max_rounds``-th) included, to ``COUNTS["auction_rounds"]``: each round
+    waits for the host to read its flag."""
     M, K = benefit.shape
     dev = benefit.device
     C = min(cand_k or 8, K)
@@ -70,7 +75,8 @@ def auction_assignment(benefit: torch.Tensor, person_mask: torch.Tensor,
     owner = torch.full((K,), -1, dtype=torch.int64, device=dev)
     person_obj = torch.full((M,), -1, dtype=torch.int64, device=dev)
     evictions = torch.zeros(M, dtype=torch.int64, device=dev)
-    for _ in range(max_rounds):
+    rounds = 0
+    for rounds in range(1, max_rounds + 1):
         cur_eps = eps * torch.exp2(torch.clamp(evictions, max=10).to(torch.float32))
         active = person_mask & (person_obj < 0)
         vals = b - price[cand]
@@ -101,6 +107,7 @@ def auction_assignment(benefit: torch.Tensor, person_mask: torch.Tensor,
         person_obj = torch.where(winner, obj, person_obj)
         owner[obj[winner]] = person_idx[winner]
         price = torch.where(newly_won, obj_best, price)
+    count("auction_rounds", rounds)
     return person_obj
 
 
@@ -380,7 +387,8 @@ def adaptive_effective_ranges(cy: np.ndarray, cx: np.ndarray, area: np.ndarray,
 
     T-chunked streaming passes the previous chunk's carry as ``prev_points``
     / ``cum_drift_init`` and gets ``(ranges, last_points, cum_drift)`` back
-    with ``return_carry=True``."""
+    with ``return_carry=True``. Each call adds its connected-component
+    solves to ``COUNTS["radii_solves"]``."""
     from scipy.sparse import coo_matrix
     from scipy.sparse.csgraph import connected_components as _cc
     from scipy.spatial import cKDTree
@@ -395,6 +403,7 @@ def adaptive_effective_ranges(cy: np.ndarray, cx: np.ndarray, area: np.ndarray,
     out = (np.full((T, N), float(search_range)) if per_cell
            else np.full((T,), float(search_range)))
     prev = prev_points
+    solves = 0
     for t in range(T):
         rows = np.nonzero(mask[t])[0]
         # the link metric is plain Euclidean in (y, x, sqrt(w) sqrt(area))
@@ -410,6 +419,7 @@ def adaptive_effective_ranges(cy: np.ndarray, cx: np.ndarray, area: np.ndarray,
                 r_cells = np.full(m, float(search_range))
 
                 def assign_radii(pair_idx, cells_scope, r):
+                    nonlocal solves
                     r_cells[cells_scope] = r
                     sel = pair_idx[dist[pair_idx] < r]
                     if sel.size == 0:
@@ -422,6 +432,7 @@ def adaptive_effective_ranges(cy: np.ndarray, cx: np.ndarray, area: np.ndarray,
                     g = coo_matrix((np.ones(sel.size), (cl, nc + tl)),
                                    shape=(nc + nt, nc + nt))
                     ncomp, comp = _cc(g, directed=False)
+                    solves += 1
                     sizes = np.bincount(comp[:nc], minlength=ncomp)
                     for c in np.nonzero(sizes > subnet_limit)[0]:
                         if r * adaptive_step < adaptive_stop:
@@ -440,12 +451,14 @@ def adaptive_effective_ranges(cy: np.ndarray, cx: np.ndarray, area: np.ndarray,
                     g = coo_matrix((np.ones(sel.sum()), (ci[sel], m + ti[sel])),
                                    shape=(m + k, m + k))
                     ncomp, comp = _cc(g, directed=False)
+                    solves += 1
                     sizes = np.bincount(comp[:m], minlength=ncomp)
                     if sizes.max(initial=0) <= subnet_limit:
                         break
                     r *= adaptive_step
                 out[t] = r
         prev = cur
+    count("radii_solves", solves)
     if return_carry:
         return out, prev, cum[-1] if T else (cum_drift_init
                                              if cum_drift_init is not None

@@ -1,12 +1,10 @@
-"""Runtime helpers: profiling traces, stage timers and structured stage
-metrics.
+"""Runtime helpers: profiling traces and structured stage metrics.
 
 Port of ``tissue_image_processing_tpu/utils/runtime.py``. ``trace`` is a
 ``torch.profiler`` context (CPU activity, and CUDA where a card is present)
-that writes a Chrome trace into its directory. ``Timer`` and
-``StageMetrics`` are the JAX package's. ``enable_compilation_cache`` points
-the kernel build cache (not XLA's, which the port does not have) at a
-directory.
+that writes a Chrome trace into its directory. ``StageMetrics`` is the
+JAX package's. ``enable_compilation_cache`` points the kernel build cache
+(not XLA's, which the port does not have) at a directory.
 """
 
 from __future__ import annotations
@@ -16,7 +14,7 @@ import os
 import time
 from pathlib import Path
 
-__all__ = ["enable_compilation_cache", "trace", "Timer", "StageMetrics"]
+__all__ = ["enable_compilation_cache", "trace", "StageMetrics"]
 
 _DEFAULT_TRACE_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.dirname(os.path.abspath(__file__)))), "build", "torch_trace")
@@ -58,36 +56,6 @@ def trace(log_dir: str = _DEFAULT_TRACE_DIR):
     with profile(activities=activities,
                  on_trace_ready=tensorboard_trace_handler(log_dir)) as prof:
         yield prof
-
-
-def _host_read(result) -> None:
-    """Read one element of ``result`` back to the host: for a tensor on the
-    card this waits for the work that produced it."""
-    import numpy as np
-    import torch
-
-    if isinstance(result, torch.Tensor):
-        result.reshape(-1)[:1].cpu()
-    else:
-        np.asarray(result).ravel()[:1]
-
-
-class Timer:
-    """Wall-clock stage timer with a synchronizing host read."""
-
-    def __init__(self):
-        self.stages = {}
-
-    @contextlib.contextmanager
-    def stage(self, name: str, result=None):
-        t0 = time.time()
-        yield
-        if result is not None:
-            _host_read(result)
-        self.stages[name] = self.stages.get(name, 0.0) + time.time() - t0
-
-    def report(self) -> str:
-        return ", ".join(f"{k}={v * 1000:.0f}ms" for k, v in self.stages.items())
 
 
 class StageMetrics:
