@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # needs one CUDA card; run from the repo root
     python3 chip_smoke.py parallel   # the build and the "parallel" phase alone
     python3 chip_smoke.py cards      # its mesh of every card, against one card
+    python3 chip_smoke.py radii      # the build and the "radii" phase alone
 
 Phases (any failure exits non-zero; no phase catches and continues):
 
@@ -178,6 +179,16 @@ Phases (any failure exits non-zero; no phase catches and continues):
     alone: the pipelines on a mesh of every card and, where four cards
     are visible, the training step over four of them (float64 hold, 10
     bfloat16 steps a run of each form, syncs 0);
+10b. "radii": the adaptive radii's sweep (``csrc/radii.cu``,
+   ``check_radii``) on the benchmark's ``raw_2000`` tables: one movie of
+   the traffic file's recipe through the watershed ``movie_pipeline`` at
+   both configurations' capacities (4096 and 8192), three
+   ``radii_sweep`` launches and the solves counted on that path; on its
+   tables the kernels (union-find in shared memory, and in device memory)
+   against the plain sweep on CPU tensors and the host recursion, radii
+   bit for bit and solves equal, the chunked call (carry) equal to the
+   whole; the kernels' device time by kernel, the wrapper's, the plain
+   sweep's and the recursion's;
 11. print the kernel table as one JSON object (launches from the Z=30
     watershed run, the component minimum's from the U-Net run, the int8
     conv's from the int8 U-Net run, with its launches by form — its times
@@ -224,12 +235,16 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
+# H100 SXM float64 outside the tensor cores, unfused: the data sheet's 34
+# TFLOP/s counts a fused multiply-add as two; csrc/radii.cu forbids fusing
+F64_OPS_PER_S = 17e12
 KERNEL_SOURCE = {
     "blur3d": "tissue_image_processing_tpu_torch/csrc/blur3d.cu",
     "proj_score": "tissue_image_processing_tpu_torch/csrc/projection.cu",
     "proj_project": "tissue_image_processing_tpu_torch/csrc/projection.cu",
     "cc_scan": "tissue_image_processing_tpu_torch/csrc/cc_scan.cu",
     "conv3x3_s8": "tissue_image_processing_tpu_torch/csrc/conv_s8.cu",
+    "radii_sweep": "tissue_image_processing_tpu_torch/csrc/radii.cu",
 }
 FLOOD_SOURCE = "tissue_image_processing_tpu_torch/csrc/flood.cu"
 REPLACES = {
@@ -1678,6 +1693,106 @@ def check_training(card: str):
           f"of its largest magnitude, parameters within 2 x lr")
 
 
+def check_radii(card: str, capacities=(4096, 8192), seed: int = 2026101807
+                ) -> dict:
+    """Phase "radii" (see the module docstring). Returns the kernel table's
+    row: launches on the pipeline's path and, by capacity, the device ms
+    of one call's kernels, the wrapper's ms, the plain sweep's and the
+    recursion's, pairs and solves a frame, and the fp64 bound."""
+    import torch
+
+    import tissue_image_processing_tpu_torch as tipt
+    from benchmark.movies import make_movie as benchmark_movie
+    from tissue_image_processing_tpu_torch.core import tracking as ttr
+    from tissue_image_processing_tpu_torch.core.pipeline import movie_pipeline
+
+    root = Path(__file__).resolve().parent
+    traffic = json.loads((root / "benchmark/traffic/raw_2000.json").read_text())
+    cfg = json.loads((root / "benchmark/configs/utricle_ws.json").read_text())
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    movie = benchmark_movie(traffic, int(cfg["frames"]), seed, dev)
+    print(f"radii: raw_2000 movie {movie.shape} (seed {seed}) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    kw = {k: cfg[k] for k in ("reference_channel", "threshold", "std",
+                              "block_size", "batch", "search_range",
+                              "memory")}
+    row = {"by_capacity": {}}
+    for capacity in capacities:
+        tipt.reset_launches()
+        out = movie_pipeline(movie, capacity=capacity, device=dev, **kw)
+        launches = tipt.LAUNCHES["radii_sweep"]
+        path_solves = tipt._device.COUNTS["radii_solves"]
+        assert launches == 3, tipt.LAUNCHES
+        tabs = out["tables"]
+        mask = tabs.valid_mask()
+        drifts = out["drifts"]
+        T = mask.shape[0]
+        card = (tabs.cy, tabs.cx, tabs.area, mask)
+        host = tuple(x.cpu() for x in card)
+
+        def solved(fn):
+            tipt.reset_launches()
+            got = fn()
+            return got, tipt._device.COUNTS["radii_solves"]
+
+        def kernel():
+            return ttr.adaptive_radii(*card, drifts=torch.from_numpy(
+                drifts).to(dev))
+
+        got, solves = solved(kernel)
+        again, _ = solved(kernel)
+        plain, plain_solves = solved(
+            lambda: ttr.adaptive_radii(*host, drifts=drifts))
+        rec, rec_solves = solved(lambda: ttr.adaptive_effective_ranges(
+            *(x.numpy() for x in host), drifts=drifts, per_cell=True))
+        real = ttr._radii_shared_limit
+        ttr._radii_shared_limit = lambda lib, d: 0
+        try:
+            dm, dm_solves = solved(kernel)
+        finally:
+            ttr._radii_shared_limit = real
+        assert torch.equal(got, again), "two runs of the sweep differ"
+        assert torch.equal(got.cpu(), plain), "kernel != plain sweep"
+        assert torch.equal(dm, got), "device-memory form != shared form"
+        assert np.array_equal(plain.numpy(), rec.astype(np.float32)), \
+            "plain sweep != host recursion"
+        assert solves == plain_solves == rec_solves == dm_solves == \
+            path_solves, (solves, plain_solves, rec_solves, dm_solves,
+                          path_solves)
+        first, carry = ttr.adaptive_radii(
+            *(x[:3] for x in card), drifts=torch.from_numpy(drifts[:3]).to(dev),
+            return_carry=True)
+        rest = ttr.adaptive_radii(*(x[3:] for x in card),
+                                  drifts=torch.from_numpy(drifts[3:]).to(dev),
+                                  carry=carry)
+        assert torch.equal(torch.cat([first, rest]), got), "chunked != whole"
+        n = mask.sum(1).cpu().numpy().astype(np.int64)
+        pairs_evaluated = int((n[1:] * n[:-1]).sum())
+        bound_ms = pairs_evaluated * 8 / F64_OPS_PER_S * 1e3
+        wrapper = cuda_ms_spread(kernel, 5)
+        split = kernel_split(kernel, 5)
+        t_plain = host_ms(lambda: ttr.adaptive_radii(*host, drifts=drifts), 3)
+        t_rec = host_ms(lambda: ttr.adaptive_effective_ranges(
+            *(x.numpy() for x in host), drifts=drifts, per_cell=True), 1)
+        r = {"cells_per_frame": n.tolist(), "solves_per_frame": solves / T,
+             "wrapper_ms": wrapper[0], "wrapper_ms_min": wrapper[1],
+             "wrapper_ms_max": wrapper[2], "kernels_us": split,
+             "plain_ms": t_plain, "recursion_ms": t_rec,
+             "bound_ms": bound_ms, "bound_by": "fp64 operations",
+             "launches": launches}
+        row["by_capacity"][capacity] = r
+        print(f"radii capacity {capacity}: kernel == plain == recursion "
+              f"(radii bit for bit, {solves} solves = "
+              f"{solves / T:.2f} a frame; device-memory form and chunked "
+              f"equal); cells a frame {n.tolist()}; wrapper "
+              f"{spread(wrapper)} (T={T}), kernels (us a call) {split}; "
+              f"plain {t_plain:.1f} ms, recursion {t_rec:.1f} ms; bound "
+              f"{bound_ms:.4f} ms (fp64) on {card_line()}")
+    del movie
+    return row
+
+
 def check_card_vs_cpu():
     """Phase 6: the card against the port's CPU path on small inputs."""
     import torch
@@ -2422,7 +2537,8 @@ def check_tissue(card: str, movie, device: str = "cuda", side: int = 1024,
        ``apply_track_ids`` and the drifts into a session on the card (its
        tables stay on the host, as ``cmd_pipeline`` keeps them; the steps
        compute on the card). Then each step timed (host clock,
-       synchronised) with its hand-written kernel launches (none expected):
+       synchronised) with its hand-written kernel launches (none expected
+       but ``track_cells``' three ``radii_sweep``, its adaptive radii):
        ``calc_cell_types`` on every frame, ``fix_cell_types_after_tracking``,
        ``find_events``, the contact matrices, ``get_frame_data`` for every
        feature name on frame 4, ``track_cells(images=...)`` on the
@@ -2502,8 +2618,10 @@ def check_tissue(card: str, movie, device: str = "cuda", side: int = 1024,
                 res = fn()
                 if record is not None:
                     sync()
+                    radii = 3 if (name == "track_cells"
+                                  and tissue.device.type == "cuda") else 0
                     record[name] = ((time.perf_counter() - t0) * 1e3 / per,
-                                    launched({}))
+                                    launched({"radii_sweep": radii}))
                 return res
 
             res = tissue_steps(tissue, markers[:frames], refs[:frames],
@@ -4491,8 +4609,8 @@ def main(argv=()) -> int:
     line."""
     import torch
 
-    if list(argv) not in ([], ["parallel"], ["cards"]):
-        print("usage: python3 chip_smoke.py [parallel | cards]",
+    if list(argv) not in ([], ["parallel"], ["cards"], ["radii"]):
+        print("usage: python3 chip_smoke.py [parallel | cards | radii]",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -4513,6 +4631,10 @@ def main(argv=()) -> int:
     from tissue_image_processing_tpu_torch.core.pipeline import _reference_frames
     from tissue_image_processing_tpu_torch.utils.synthetic import make_movie
 
+    if argv == ["radii"]:
+        print(json.dumps({"radii_sweep": check_radii(card)}))
+        print(card_line())
+        return 0
     if argv:
         movie = make_movie(T=8, Z=30, H=1024, W=1024, seed=0).astype(np.uint16)
         (check_parallel if argv == ["parallel"] else check_cards)(card, movie)
@@ -4543,6 +4665,7 @@ def main(argv=()) -> int:
     launches, blur_shapes = check_pipeline(card, movie_z30)
     unet_launches, unet_blur_shapes, int8_launches, int8_forms = \
         check_unet_pipeline(card, movie_z30)
+    radii_row = check_radii(card)
     check_card_vs_cpu()
     check_keras_weights(card)
     check_training(card)
@@ -4623,6 +4746,11 @@ def main(argv=()) -> int:
             **({"launches_by_function": by_caller[name]}
                if name in by_caller else {}),
             **{k: r[k] for k in ("ms_min", "ms_max", "device_ms") if k in r}})
+    table.append({"name": "radii_sweep", "route": "cuda",
+                  "source": KERNEL_SOURCE["radii_sweep"],
+                  "replaces": "none (host numpy / scipy in the JAX package: "
+                              "core/tracking.py:adaptive_effective_ranges)",
+                  **radii_row})
     # blur3d at the unfused projection's shapes (the driver, the
     # frame-sharded pipelines, band_pass_filter, the production envelope,
     # the space shards): the form each ran and the generic form's time

@@ -231,3 +231,22 @@ def crocker_grier_link(frames, search_range=100.0, memory=3, area_weight=0.5,
         live = new_live
         out.append(ids)
     return out
+
+
+def radii_tables(seed, T, cells, capacity, side=2000.0):
+    """(T, capacity) cell tables of ~``cells`` cells drifting over a side^2
+    frame (the benchmark's cell density at side 2000), on rows drawn at
+    random, and (T, 2) float32 drifts: inputs of the adaptive radii."""
+    rng = np.random.default_rng(seed)
+    base = rng.random((cells, 2)) * side
+    cy, cx, area = (np.zeros((T, capacity), np.float32) for _ in range(3))
+    mask = np.zeros((T, capacity), bool)
+    for t in range(T):
+        n = cells - int(rng.integers(0, 60))
+        p = base[:n] + rng.normal(0, 3, (n, 2)) + t * np.array([1.5, -1.0])
+        rows = rng.permutation(capacity)[:n]
+        cy[t, rows], cx[t, rows] = p[:, 0], p[:, 1]
+        area[t, rows] = rng.normal(1500.0, 300.0, n)
+        mask[t, rows] = True
+    drifts = rng.normal(0, 1, (T, 2)).astype(np.float32)
+    return cy, cx, area, mask, drifts

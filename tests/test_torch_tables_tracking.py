@@ -24,6 +24,7 @@ import pytest
 import torch
 
 from conftest import make_cell_labels
+from oracles import radii_tables
 from tissue_image_processing_tpu.core import cell_table as jct
 from tissue_image_processing_tpu.core import tracking as jtr
 from tissue_image_processing_tpu.ops import drift as jdr
@@ -196,6 +197,102 @@ def test_adaptive_ranges_match_jax():
     got = ttr.adaptive_effective_ranges(cy, cx, area, mask, drifts=drifts,
                                         per_cell=True).astype(np.float32)
     np.testing.assert_array_equal(got, want)
+
+
+def _pack(frames, drift=(0.0, 0.0)):
+    """(T, N) tables of ``frames`` (lists of (y, x, area) cells), each cell
+    on every other row so that empty rows lie between them, and a constant
+    drift a frame."""
+    T = len(frames)
+    N = 2 * max(len(f) for f in frames) + 3
+    cy, cx, area = (np.zeros((T, N), np.float32) for _ in range(3))
+    mask = np.zeros((T, N), bool)
+    for t, cells in enumerate(frames):
+        for k, (y, x, a) in enumerate(cells):
+            cy[t, 2 * k + 1], cx[t, 2 * k + 1] = y, x
+            area[t, 2 * k + 1], mask[t, 2 * k + 1] = a, True
+    drifts = np.tile(np.asarray(drift, np.float32), (T, 1))
+    return cy, cx, area, mask, drifts
+
+
+def _grid(n, y0, x0, step, cols, area=100.0):
+    return [(y0 + step * (k // cols), x0 + step * (k % cols), area)
+            for k in range(n)]
+
+
+def _radii_case(name):
+    """Tables of one case for the sweep-against-recursion test."""
+    if name.startswith("fixture"):
+        return _tracking_inputs()[:5]
+    if name.startswith("dense_"):
+        # the card test's tables: the benchmark's cell density, where the
+        # root subnet splits only ~17-20 levels down
+        capacity = int(name[len("dense_"):])
+        return radii_tables(capacity, 4, {4096: 2700, 8192: 3900}[capacity],
+                            capacity)
+    if name == "tie":
+        # 15 + 15 cells joined only through X, exactly r_1 = 95 from both
+        # track piles: 31 cells at r_0, 15 and 15 at r_1; Y lies exactly
+        # r_0 = 100 from the first pile and links to nothing
+        prev = [(0.0, 0.0, 100.0)] * 15 + [(114.0, 152.0, 100.0)] * 15
+        cur = ([(0.1 * k, 0.0, 100.0) for k in range(15)]
+               + [(114.0 + 0.1 * k, 152.0, 100.0) for k in range(15)]
+               + [(57.0, 76.0, 100.0), (-60.0, -80.0, 100.0)])
+        return _pack([prev, cur])
+    if name == "limit":
+        # subnets of exactly subnet_limit and subnet_limit + 1 cells
+        cur = _grid(30, 0.0, 0.0, 20.0, 6) + _grid(31, 0.0, 1000.0, 20.0, 6)
+        prev = [(y + 1.0, x + 1.0, a) for y, x, a in cur]
+        return _pack([prev, cur])
+    if name == "floor":
+        # too dense to split above adaptive_stop
+        cur = _grid(40, 0.0, 0.0, 0.5, 8)
+        prev = [(y + 0.2, x, a + 3.0) for y, x, a in cur]
+        return _pack([prev, cur], drift=(0.25, -0.5))
+    if name == "empty":
+        cells = _grid(40, 0.0, 0.0, 15.0, 8)
+        moved = [(y + 2.0, x - 1.0, a + 5.0) for y, x, a in cells]
+        return _pack([cells, [], cells, moved, []], drift=(0.5, 0.25))
+    if name == "isolated":
+        # one linked pair; every other cell 250 px from any track
+        prev = _grid(9, 0.0, 0.0, 500.0, 3)
+        cur = [(y + 250.0, x + 250.0, a) for y, x, a in prev]
+        return _pack([prev, cur + [(3.0, 4.0, 120.0)]])
+    raise ValueError(name)
+
+
+@pytest.mark.parametrize("case", ["fixture", "fixture_chunked", "tie",
+                                  "limit", "floor", "empty", "isolated",
+                                  "dense_4096", "dense_8192"])
+def test_adaptive_radii_sweep_equals_recursion(case):
+    """The plain form of the level sweep, and the port's host recursion,
+    give the JAX package's per-cell radii bit for bit, and the sweep counts
+    the recursion's solves; chunked calls with the carry give the whole
+    movie's."""
+    cy, cx, area, mask, drifts = _radii_case(case)
+    want = jtr.adaptive_effective_ranges(cy, cx, area, mask, drifts=drifts,
+                                         per_cell=True).astype(np.float32)
+    _device.reset_launches()
+    recursion = ttr.adaptive_effective_ranges(cy, cx, area, mask,
+                                              drifts=drifts, per_cell=True)
+    solves = _device.COUNTS["radii_solves"]
+    np.testing.assert_array_equal(recursion.astype(np.float32), want)
+    _device.reset_launches()
+    t = torch.from_numpy
+    if case.endswith("_chunked"):
+        h = 10
+        first, carry = ttr.adaptive_radii(
+            t(cy[:h]), t(cx[:h]), t(area[:h]), t(mask[:h]), drifts=drifts[:h],
+            return_carry=True)
+        rest = ttr.adaptive_radii(t(cy[h:]), t(cx[h:]), t(area[h:]),
+                                  t(mask[h:]), drifts=drifts[h:], carry=carry)
+        got = torch.cat([first, rest])
+    else:
+        got = ttr.adaptive_radii(t(cy), t(cx), t(area), t(mask),
+                                 drifts=drifts)
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert _device.COUNTS["radii_solves"] == solves
 
 
 def test_track_movie_exact_and_resumes_from_jax_carry():

@@ -44,14 +44,15 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 DEFAULT_BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
 # where built libraries are kept; utils/runtime.enable_compilation_cache moves it
 BUILD_DIR = DEFAULT_BUILD_DIR
-KERNEL_SOURCES = ("blur3d", "flood", "projection", "cc_scan", "conv_s8")
+KERNEL_SOURCES = ("blur3d", "flood", "projection", "cc_scan", "conv_s8",
+                  "radii")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES: Dict[str, int] = {"blur3d": 0, "diffusion_bf": 0,
                             "diffusion_cc": 0, "settle_mask": 0, "settle": 0,
                             "proj_score": 0, "proj_project": 0, "cc_scan": 0,
-                            "conv3x3_s8": 0}
+                            "conv3x3_s8": 0, "radii_sweep": 0}
 # blur3d launches by (Z, Y, X, tz, ty, tx)
 BLUR_LAUNCHES: collections.Counter = collections.Counter()
 # blur3d launches by form ("z_only", "tile25", "walk", "generic")

@@ -18,8 +18,9 @@ A Z == 1 movie is pre-projected and skips this.
   projection, with the two drift columns swapped to match.
 
 Tables and the drift chain run as tensor code on the same device, the
-adaptive radii take one host pass over the tables, and the tracker links
-frame by frame on the device.
+adaptive radii are one level sweep over the tables there (on the card the
+``csrc/radii.cu`` kernels), and the tracker links frame by frame on the
+device.
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ from tissue_image_processing_tpu_torch._device import count, resolve_device
 from tissue_image_processing_tpu_torch.core.cell_table import (
     CellTable, frame_cellinfo_checked, stack_tables)
 from tissue_image_processing_tpu_torch.core.tracking import (
-    TrackingState, adaptive_effective_ranges, compute_drift_chain, track_movie)
+    TrackingState, adaptive_radii, compute_drift_chain, track_movie)
 from tissue_image_processing_tpu_torch.models.predictor import (
     prepare_batch, unet_from_config, unet_postprocess_batch)
 from tissue_image_processing_tpu_torch.ops.watershed import (
@@ -270,22 +271,20 @@ def movie_pipeline(movie, *, reference_channel: int = 0,
     segment = _segmenter(dev, unet, reference_channel, threshold, std,
                          block_size, capacity, batch, airyscan)
     labels, tabs, dr, overflow, _ = segment(movie, None, timings)
+    if drifts is not None:
+        dr = drifts
     with _span(timings, "adaptive_radii", dev):
-        if drifts is None:
-            drifts = dr.cpu().numpy()
-        host = tabs.map(lambda x: x.cpu())
-        mask = host.valid_mask().numpy()
-        ranges = adaptive_effective_ranges(
-            host.cy.numpy(), host.cx.numpy(), host.area.numpy(), mask,
-            drifts=drifts, search_range=search_range, per_cell=True)
+        mask = tabs.valid_mask()
+        ranges = adaptive_radii(tabs.cy, tabs.cx, tabs.area, mask, drifts=dr,
+                                search_range=search_range)
     with _span(timings, "track", dev):
-        ids = track_movie(tabs.cy, tabs.cx, tabs.area, tabs.valid_mask(),
-                          drifts=torch.as_tensor(drifts, dtype=torch.float32,
+        ids = track_movie(tabs.cy, tabs.cx, tabs.area, mask,
+                          drifts=torch.as_tensor(dr, dtype=torch.float32,
                                                  device=dev),
                           search_range=search_range, memory=memory,
-                          capacity=2 * capacity,
-                          search_ranges=torch.as_tensor(
-                              ranges, dtype=torch.float32, device=dev))
+                          capacity=2 * capacity, search_ranges=ranges)
+    if drifts is None:
+        drifts = dr.cpu().numpy()
     return {"labels": labels, "tables": tabs, "drifts": drifts,
             "ids": ids.cpu().numpy(),
             "neighbor_overflow": overflow.cpu().numpy()}
@@ -306,8 +305,8 @@ def movie_pipeline_chunked(store, *, chunk_frames: int,
     array or memmap) is read in ``chunk_frames``-frame chunks, carrying
     across boundaries the tracker state and cumulative drift, the previous
     chunk's last (projected) reference frame (so drift[0] of a chunk is the
-    boundary shift) and the adaptive-radius point set — chunked ids, labels
-    and tables equal the whole-movie run's exactly.
+    boundary shift) and the adaptive radii's ``RadiiCarry`` — chunked ids,
+    labels and tables equal the whole-movie run's exactly.
 
     ``on_chunk(t0, chunk_dict)`` receives each chunk's host arrays; with
     ``keep_labels=False`` (or an ``on_chunk``) labels are not kept.
@@ -325,27 +324,24 @@ def movie_pipeline_chunked(store, *, chunk_frames: int,
     C = max(1, min(int(chunk_frames), T))
     state = TrackingState.empty(2 * capacity, dev)
     cum = torch.zeros(2, dtype=torch.float32, device=dev)
-    prev_pts, prev_ref, ranges_cum = None, None, None
+    radii_carry, prev_ref = None, None
     all_ids, all_tabs, all_drifts, all_over, all_labels = [], [], [], [], []
     for t0 in range(0, T, C):
         chunk = np.asarray(data[t0:t0 + C])
         if channels is not None:
             chunk = chunk[:, list(channels)]
         labels, tabs, dr, overflow, prev_ref = segment(chunk, prev_ref)
+        mask = tabs.valid_mask()
+        ranges, radii_carry = adaptive_radii(
+            tabs.cy, tabs.cx, tabs.area, mask, drifts=dr,
+            search_range=search_range, carry=radii_carry, return_carry=True)
+        ids, state, cum = track_movie(
+            tabs.cy, tabs.cx, tabs.area, mask,
+            drifts=dr, search_range=search_range, memory=memory,
+            capacity=2 * capacity, search_ranges=ranges,
+            init_state=state, cum_drift_init=cum, return_state=True)
         host = tabs.map(lambda x: x.cpu())
         drifts = dr.cpu().numpy()
-        mask = host.valid_mask().numpy()
-        ranges, prev_pts, ranges_cum = adaptive_effective_ranges(
-            host.cy.numpy(), host.cx.numpy(), host.area.numpy(), mask,
-            drifts=drifts, search_range=search_range, prev_points=prev_pts,
-            cum_drift_init=ranges_cum, return_carry=True, per_cell=True)
-        ids, state, cum = track_movie(
-            tabs.cy, tabs.cx, tabs.area, tabs.valid_mask(),
-            drifts=dr, search_range=search_range, memory=memory,
-            capacity=2 * capacity,
-            search_ranges=torch.as_tensor(ranges, dtype=torch.float32,
-                                          device=dev),
-            init_state=state, cum_drift_init=cum, return_state=True)
         # labels reach the host only for someone who keeps or receives them
         keep = on_chunk is not None or keep_labels
         chunk_out = {"t0": t0, "labels": labels.cpu().numpy() if keep else None,

@@ -496,10 +496,10 @@ class Tissue:
                     search_range: float = 100.0, memory: int = 3) -> int:
         """Track the frames on the session's device: drifts from ``images``
         (the drift chain, or the stage-prior refinement when a stage
-        sidecar exists), per-cell adaptive radii on the host, then the
-        auction tracker; writes track ids into each frame's ``label``."""
+        sidecar exists), per-cell adaptive radii, then the auction tracker;
+        writes track ids into each frame's ``label``."""
         from tissue_image_processing_tpu_torch.core.tracking import (
-            adaptive_effective_ranges, compute_drift_chain, track_movie)
+            adaptive_radii, compute_drift_chain, track_movie)
 
         if final_frame == -1:
             final_frame = self.number_of_frames
@@ -535,18 +535,18 @@ class Tissue:
                     torch.from_numpy(imgs).to(self.device)))
             self.drifts[initial_frame - 1:final_frame] = drifts
         drifts_np = self.drifts[initial_frame - 1:final_frame].astype(np.float32)
+
+        def dev(a):
+            return torch.as_tensor(a).to(self.device)
+
+        tabs = [dev(cy), dev(cx), dev(area), dev(mask)]
         # trackpy's adaptive search: per-cell effective radii
-        ranges = adaptive_effective_ranges(cy, cx, area, mask, drifts=drifts_np,
-                                           search_range=search_range,
-                                           per_cell=True)
-
-        def dev(a, dtype=None):
-            return torch.as_tensor(a, dtype=dtype).to(self.device)
-
+        ranges = adaptive_radii(*tabs, drifts=dev(drifts_np),
+                                search_range=search_range)
         ids = to_numpy(track_movie(
-            dev(cy), dev(cx), dev(area), dev(mask), drifts=dev(drifts_np),
-            frame_valid=dev(valid), search_range=search_range, memory=memory,
-            capacity=2 * cap, search_ranges=dev(ranges, torch.float32)))
+            *tabs, drifts=dev(drifts_np), frame_valid=dev(valid),
+            search_range=search_range, memory=memory, capacity=2 * cap,
+            search_ranges=ranges))
         for i, f in enumerate(frames):
             t = tables[i]
             if t is None:

@@ -4,9 +4,11 @@ Port of ``tissue_image_processing_tpu/core/tracking.py``: trackpy's linking
 (metric sqrt(dy^2 + dx^2 + 0.5 (sqrt a1 - sqrt a2)^2), search_range gate,
 memory) resolved per frame by a forward auction with top-k candidate pruning
 and per-person eps escalation; the drift chain and the windowed local drift
-field by phase correlation; the host-side adaptive per-cell radii (trackpy's
-subnet shrinking); and the legacy nearest-pixel tracker (host numpy and
-scipy, as in the JAX package).
+field by phase correlation; the adaptive per-cell radii (trackpy's subnet
+shrinking: the JAX package's host recursion, and :func:`adaptive_radii`, the
+same radii as one level sweep of a union-find, on the card the
+``csrc/radii.cu`` kernels); and the legacy nearest-pixel tracker (host
+numpy and scipy, as in the JAX package).
 
 The JAX ``lax.while_loop``/``lax.scan`` become Python loops and the
 ``segment_*`` reductions ``scatter_reduce``. The arithmetic follows the JAX
@@ -16,12 +18,15 @@ its compiler forms in the link cost, so ids agree exactly on the same inputs.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import math
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
+from tissue_image_processing_tpu_torch import _device
 from tissue_image_processing_tpu_torch._device import (
     count, resolve_device, to_host)
 from tissue_image_processing_tpu_torch._numerics import fma_f32
@@ -29,7 +34,8 @@ from tissue_image_processing_tpu_torch.ops.drift import phase_cross_correlation
 
 __all__ = ["TrackingState", "auction_assignment", "link_frames", "track_movie",
            "track_movie_nearest_pixel", "compute_drift_chain",
-           "local_drift_field", "adaptive_effective_ranges"]
+           "local_drift_field", "adaptive_effective_ranges",
+           "RadiiCarry", "adaptive_radii"]
 
 _NEG = float("-inf")
 
@@ -384,6 +390,8 @@ def adaptive_effective_ranges(cy: np.ndarray, cx: np.ndarray, area: np.ndarray,
     ``adaptive_stop=10``): candidate subnets larger than ``subnet_limit``
     cells shrink their radius by ``adaptive_step`` until they split, floored
     at ``adaptive_stop``. Host numpy, a copy of the JAX package's function.
+    The pipelines and ``Tissue`` take per-cell radii from
+    :func:`adaptive_radii`; the tests hold it to this recursion.
 
     T-chunked streaming passes the previous chunk's carry as ``prev_points``
     / ``cum_drift_init`` and gets ``(ranges, last_points, cum_drift)`` back
@@ -464,3 +472,249 @@ def adaptive_effective_ranges(cy: np.ndarray, cx: np.ndarray, area: np.ndarray,
                                              if cum_drift_init is not None
                                              else np.zeros(2))
     return out
+
+
+# --- adaptive radii as one level sweep ----------------------------------------
+
+_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+_TABLES = (_P,) * 10 + (_I,) * 4 + (_D,) * 4
+_RADII_SIGNATURES = {
+    "radii_shared_limit": (),
+    "radii_count": _TABLES + (_P, _P, _P),
+    "radii_sweep": _TABLES + (_P, _P, _P, _P, _I, _P, _P, _P, _P),
+}
+_RADII_LAUNCHES = 3  # count, emit, sweep
+_MAX_LEVELS = 512    # csrc/radii.cu MAX_LEVELS
+# adaptive_effective_ranges' defaults, which every caller runs: subnets of
+# more than _SUBNET_LIMIT cells shrink their radius by _ADAPTIVE_STEP while
+# it stays >= _ADAPTIVE_STOP; the area term is weighted by 0.5
+_SUBNET_LIMIT, _ADAPTIVE_STEP, _ADAPTIVE_STOP = 30, 0.95, 10.0
+_SQRT_AREA_WEIGHT = math.sqrt(0.5)
+
+
+@dataclasses.dataclass(frozen=True)
+class RadiiCarry:
+    """What :func:`adaptive_radii` carries from one T-chunk to the next:
+    the last frame's rows (cells link to them) and the float64 running
+    drift sum after it."""
+
+    cy: torch.Tensor     # (K,) f32
+    cx: torch.Tensor     # (K,) f32
+    area: torch.Tensor   # (K,) f32
+    valid: torch.Tensor  # (K,) bool
+    cum: torch.Tensor    # (2,) f64
+
+
+def _radii_levels(search_range: float) -> list:
+    """The recursion's radii r_0 = search_range, r_{i+1} = r_i *
+    ``_ADAPTIVE_STEP`` (float64 products in that order) while r_{i+1} >=
+    ``_ADAPTIVE_STOP``."""
+    radii = [float(search_range)]
+    while radii[-1] * _ADAPTIVE_STEP >= _ADAPTIVE_STOP:
+        if len(radii) == _MAX_LEVELS:
+            raise ValueError(
+                f"adaptive radii: more than {_MAX_LEVELS} levels from "
+                f"{search_range} by {_ADAPTIVE_STEP} down to {_ADAPTIVE_STOP}")
+        radii.append(radii[-1] * _ADAPTIVE_STEP)
+    return radii
+
+
+def adaptive_radii(cy: torch.Tensor, cx: torch.Tensor, area: torch.Tensor,
+                   mask: torch.Tensor, drifts=None, search_range: float = 100.0,
+                   carry: Optional[RadiiCarry] = None,
+                   return_carry: bool = False):
+    """:func:`adaptive_effective_ranges` with ``per_cell=True`` and its
+    default subnet limit, step, stop and area weight, on the (T, N) tables'
+    device: the same radii as float32 (T, N) on that device (with
+    ``return_carry``, ``(radii, RadiiCarry)``), and the same solves added to
+    ``COUNTS["radii_solves"]``.
+
+    The recursion's re-solve of a subnet at a shrunk radius equals the
+    global components one level down restricted to it, since the
+    components of the radii r_0 > r_1 > ... nest. So one sweep of a
+    union-find from the deepest level to r_0 gives every cell the deepest
+    level at which its component is oversized, and the radius one level
+    below it. A card tensor runs ``csrc/radii.cu`` (three launches, two
+    small host reads: the pair total and the solves); a CPU tensor the plain
+    form of the same sweep (:func:`_radii_plain`). ``drifts`` (T, 2), numpy
+    or a tensor, are summed in float64 as the host does; ``carry`` (the
+    previous chunk's) makes chunked radii equal the whole movie's."""
+    dev = cy.device
+    T, N = cy.shape
+    levels = _radii_levels(search_range)
+    if T == 0:
+        radii = torch.empty((0, N), dtype=torch.float32, device=dev)
+        return (radii, carry) if return_carry else radii
+    if drifts is None:
+        drift = torch.zeros((T, 2), dtype=torch.float64, device=dev)
+    else:
+        drift = torch.as_tensor(drifts).to(device=dev, dtype=torch.float64)
+    cum0 = (torch.zeros(2, dtype=torch.float64, device=dev) if carry is None
+            else carry.cum.to(device=dev, dtype=torch.float64))
+    if dev.type == "cpu":
+        radii, cum, solves = _radii_plain(cy, cx, area, mask, drift, cum0,
+                                          carry, levels)
+    else:
+        radii, cum, solves = _radii_card(cy, cx, area, mask, drift, cum0,
+                                         carry, levels)
+    count("radii_solves", solves)
+    if not return_carry:
+        return radii
+    return radii, RadiiCarry(cy[-1], cx[-1], area[-1], mask[-1], cum)
+
+
+def _radii_lib():
+    return _device.load_library("radii", _RADII_SIGNATURES)
+
+
+def _radii_shared_limit(lib, dev: torch.device) -> int:
+    """Union-find bytes a frame that the sweep can keep in ``dev``'s shared
+    memory."""
+    with torch.cuda.device(dev):
+        return lib.radii_shared_limit()
+
+
+def _radii_card(cy, cx, area, mask, drift, cum0, carry, levels):
+    """The sweep in ``csrc/radii.cu`` (the kernels rebuild ``levels`` as
+    r_{i+1} = r_i * ``_ADAPTIVE_STEP``): returns (radii, cum, solves)."""
+    dev = cy.device
+    T, N = cy.shape
+    f32 = lambda x: x.to(torch.float32).contiguous()
+    u8 = lambda x: x.to(torch.bool).contiguous().view(torch.uint8)
+    tabs = [f32(cy), f32(cx), f32(area), u8(mask)]
+    if carry is None:
+        prev, K = [None] * 4, 0
+    else:
+        prev = [f32(carry.cy.to(dev)), f32(carry.cx.to(dev)),
+                f32(carry.area.to(dev)), u8(carry.valid.to(dev))]
+        K = prev[0].shape[0]
+    drift, cum0 = drift.contiguous(), cum0.contiguous()
+    nlev, r0 = len(levels), levels[0]
+    # a squared bound above r0^2: no pair beyond it has sqrt < r0
+    thr = r0 * r0 * (1.0 + 2.0 ** -40)
+    ptrs = [None if x is None else _device.ptr(x) for x in tabs + prev]
+    args = (*ptrs, _device.ptr(drift), _device.ptr(cum0), T, N, K, nlev, r0,
+            _ADAPTIVE_STEP, thr, _SQRT_AREA_WEIGHT)
+    buf = torch.zeros(2 * T * nlev + 2, dtype=torch.int32, device=dev)
+    counts, cursor = buf[:T * nlev], buf[T * nlev:2 * T * nlev]
+    meta = buf[2 * T * nlev:]
+    lib = _radii_lib()
+    _device.launch(lib, lib.radii_count, dev, "radii_count", *args,
+                   _device.ptr(counts), _device.ptr(meta))
+    pairs = int(meta[0])
+    edges = torch.empty((max(pairs, 1), 2), dtype=torch.int32, device=dev)
+    radii = torch.empty((T, N), dtype=torch.float32, device=dev)
+    cum = torch.empty(2, dtype=torch.float64, device=dev)
+    # the union-find's bytes a frame: parent and count a node, two shorts
+    # a cell; beyond the card's shared memory they live in device memory
+    nbytes = 8 * (N + max(N, K)) + 4 * N
+    ws = (None if nbytes <= _radii_shared_limit(lib, dev) else
+          torch.empty(T * nbytes // 4, dtype=torch.int32, device=dev))
+    _device.launch(lib, lib.radii_sweep, dev, "radii_sweep", *args,
+                   _device.ptr(counts), _device.ptr(cursor),
+                   _device.ptr(meta), _device.ptr(edges), _SUBNET_LIMIT,
+                   _device.ptr(radii), _device.ptr(cum),
+                   None if ws is None else _device.ptr(ws))
+    _device.count_launch("radii_sweep", _RADII_LAUNCHES)
+    return radii, cum, int(meta[1])
+
+
+def _radii_points(cy, cx, area, valid, cum):
+    """Rows and float64 points (y, x, sqrt(w) sqrt(max(area, 0))) of one
+    frame's valid cells, rounded as the host rounds them."""
+    rows = np.nonzero(valid)[0]
+    side = np.sqrt(np.maximum(area[rows], np.float32(0))).astype(np.float64)
+    return rows, np.stack([cy[rows].astype(np.float64) + cum[0],
+                           cx[rows].astype(np.float64) + cum[1],
+                           _SQRT_AREA_WEIGHT * side], axis=1)
+
+
+def _uf_roots(parent: np.ndarray) -> np.ndarray:
+    while True:
+        up = parent[parent]
+        if np.array_equal(up, parent):
+            return parent
+        parent = up
+
+
+def _uf_unite(parent: np.ndarray, a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Unite the sets of every pair (a[k], b[k]); roots stay the smallest
+    index of their set. Returns the parent array, every node at its root."""
+    while True:
+        parent = _uf_roots(parent)
+        ra, rb = parent[a], parent[b]
+        apart = ra != rb
+        if not apart.any():
+            return parent
+        a, b, ra, rb = a[apart], b[apart], ra[apart], rb[apart]
+        np.minimum.at(parent, np.maximum(ra, rb), np.minimum(ra, rb))
+
+
+def _sweep_plain(N: int, P: int, cell: np.ndarray, prev: np.ndarray,
+                 level: np.ndarray, nlev: int):
+    """The kernel's sweep over one frame's pairs (cell row, previous row) at
+    their levels: returns each cell's first oversized level met from the
+    deepest (-1: none) and the frame's solves."""
+    parent = np.arange(N + P)
+    maxlev = np.full(N, -1)
+    first = np.full(N, -1)
+    solves = int(cell.size > 0)
+    for lev in range(nlev - 1, -1, -1):
+        here = level == lev
+        a = cell[here]
+        maxlev[a] = np.maximum(maxlev[a], lev)
+        parent = _uf_unite(parent, a, N + prev[here])
+        if lev == nlev - 1 or not (level >= lev).any():
+            continue
+        touched = np.nonzero(maxlev >= 0)[0]
+        root = parent[touched]
+        big = np.bincount(root, minlength=N + P) > _SUBNET_LIMIT
+        deep = np.zeros(N + P, bool)
+        deep[root[maxlev[touched] > lev]] = True
+        hit = touched[big[root]]
+        first[hit] = np.where(first[hit] < 0, lev, first[hit])
+        solves += int((big & deep).sum())
+    return first, solves
+
+
+def _radii_plain(cy, cx, area, mask, drift, cum0, carry, levels):
+    """Plain form of ``csrc/radii.cu`` on the host: the pairs within r_0
+    (candidates from a KD-tree, distances by the kernel's formula), each at
+    its level, then :func:`_sweep_plain` a frame. Returns (radii, cum,
+    solves) as tensors on ``cy``'s device."""
+    from scipy.spatial import cKDTree
+
+    T, N = cy.shape
+    cy, cx, area = (x.to(torch.float32).numpy() for x in (cy, cx, area))
+    valid = mask.to(torch.bool).numpy()
+    drift, cum = drift.numpy(), cum0.numpy().copy()
+    r = np.asarray(levels)
+    out = np.full((T, N), r[0])
+    prev = None
+    if carry is not None:
+        prev = _radii_points(carry.cy.to(torch.float32).numpy(),
+                             carry.cx.to(torch.float32).numpy(),
+                             carry.area.to(torch.float32).numpy(),
+                             carry.valid.to(torch.bool).numpy(), cum)
+        prev = prev + (carry.valid.shape[0],)
+    solves = 0
+    for t in range(T):
+        cum = cum + drift[t]
+        rows, pts = _radii_points(cy[t], cx[t], area[t], valid[t], cum)
+        if prev is not None and len(rows) and len(prev[0]):
+            prows, ppts, P = prev
+            near = cKDTree(pts).sparse_distance_matrix(
+                cKDTree(ppts), r[0] * (1 + 1e-9), output_type="coo_matrix")
+            d = pts[near.row] - ppts[near.col]
+            dist = np.sqrt((d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1])
+                           + d[:, 2] * d[:, 2])
+            keep = dist < r[0]
+            dist = dist[keep]
+            level = (dist[:, None] < r[None, 1:]).sum(axis=1)
+            first, n = _sweep_plain(N, P, rows[near.row[keep]],
+                                    prows[near.col[keep]], level, len(r))
+            out[t] = r[first + 1]  # first == -1: r_0
+            solves += n
+        prev = rows, pts, N
+    return (torch.from_numpy(out.astype(np.float32)),
+            torch.from_numpy(cum), solves)
