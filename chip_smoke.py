@@ -5,6 +5,7 @@
     python3 chip_smoke.py parallel   # the build and the "parallel" phase alone
     python3 chip_smoke.py cards      # its mesh of every card, against one card
     python3 chip_smoke.py radii      # the build and the "radii" phase alone
+    python3 chip_smoke.py cellpose   # the build and the "cellpose" phase alone
 
 Phases (any failure exits non-zero; no phase catches and continues):
 
@@ -189,6 +190,16 @@ Phases (any failure exits non-zero; no phase catches and continues):
    bit for bit and solves equal, the chunked call (carry) equal to the
    whole; the kernels' device time by kernel, the wrapper's, the plain
    sweep's and the recursion's;
+10c. "cellpose": Cellpose's flow following (``csrc/follow_flows.cu``,
+   ``check_cellpose``) on the benchmark's ``cellpose_preproj_2000`` input:
+   one movie of the ``preproj_2000`` recipe, the configuration's network
+   as its set-up trains it, the port's flows of two 2000^2 frames;
+   on their masked field the kernel against its plain version on the card,
+   200 steps, bit for bit (two kernel runs equal too), the kernel's device
+   time by graph-free CUDA-event brackets and by the profiler, the plain
+   version's, the followed pixels and the bound of
+   ``benchmark/costs/follow.py``; then the Cellpose ``movie_pipeline`` on
+   that movie, one ``follow_flows`` launch a group of frames;
 11. print the kernel table as one JSON object (launches from the Z=30
     watershed run, the component minimum's from the U-Net run, the int8
     conv's from the int8 U-Net run, with its launches by form — its times
@@ -245,6 +256,7 @@ KERNEL_SOURCE = {
     "cc_scan": "tissue_image_processing_tpu_torch/csrc/cc_scan.cu",
     "conv3x3_s8": "tissue_image_processing_tpu_torch/csrc/conv_s8.cu",
     "radii_sweep": "tissue_image_processing_tpu_torch/csrc/radii.cu",
+    "follow_flows": "tissue_image_processing_tpu_torch/csrc/follow_flows.cu",
 }
 FLOOD_SOURCE = "tissue_image_processing_tpu_torch/csrc/flood.cu"
 REPLACES = {
@@ -1791,6 +1803,82 @@ def check_radii(card: str, capacities=(4096, 8192), seed: int = 2026101807
               f"{bound_ms:.4f} ms (fp64) on {card_line()}")
     del movie
     return row
+
+
+def check_cellpose(card: str, seed: int = 2026101821) -> dict:
+    """Phase "cellpose" (see the module docstring). Returns the kernel
+    table's row."""
+    import torch
+
+    import tissue_image_processing_tpu_torch as tipt
+    from benchmark.costs.follow import least_follow_seconds
+    from benchmark.movies import make_movie as benchmark_movie
+    from benchmark.programs.cellpose_pipeline import Program
+    from tissue_image_processing_tpu_torch.core.pipeline import movie_pipeline
+    from tissue_image_processing_tpu_torch.models.cellpose import (
+        CellposeRunner)
+    from tissue_image_processing_tpu_torch.ops.flows import follow_plain
+    from tissue_image_processing_tpu_torch.ops.flows_cuda import follow_cuda
+
+    root = Path(__file__).resolve().parent
+    traffic = json.loads((root / "benchmark/traffic/preproj_2000.json")
+                         .read_text())
+    cfg = json.loads((root / "benchmark/configs/utricle_cellpose.json")
+                     .read_text())
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    movie = benchmark_movie(traffic, int(cfg["frames"]), seed, dev)
+    program = Program(cfg, [movie], dev)
+    print(f"cellpose: preproj_2000 movie {movie.shape} (seed {seed}) and "
+          f"the trained network in {time.perf_counter() - t0:.1f} s")
+    runner = CellposeRunner(program.kwargs["cellpose"], dev)
+    frames = torch.from_numpy(movie[:2, :, 0].astype(np.float32)).to(dev)
+    flows = runner.blend(runner.forward(runner.tiles(frames)),
+                         *frames.shape[-2:])
+    m = flows[:, 2] > runner.cellprob_threshold
+    d = ((flows[:, :2] * m[:, None]) / 5.0).contiguous()
+    steps = runner.niter
+    tipt.reset_launches()
+    got = follow_cuda(d, steps)
+    again = follow_cuda(d, steps)
+    launches = tipt.LAUNCHES["follow_flows"]
+    plain = follow_plain(d, steps)
+    assert torch.equal(got, again), "two runs of follow_flows differ"
+    assert torch.equal(got, plain), "follow_flows != its plain version"
+    followed = int((d[:, 0].abs() > 1e-3).sum())
+    B, _, Y, X = d.shape
+    bound_ms = least_follow_seconds(B * Y * X, followed, steps) * 1e3
+    ms = cuda_ms_spread(lambda: follow_cuda(d, steps), 3)
+    split = kernel_split(lambda: follow_cuda(d, steps), 3)
+    t_plain = host_ms(lambda: (follow_plain(d, steps),
+                               torch.cuda.synchronize()), 1)
+    print(f"cellpose follow_flows: kernel == plain bit for bit on {B} "
+          f"2000^2 frames, {steps} steps, {followed} followed pixels; "
+          f"kernel {spread(ms)}, by the profiler (us a call) {split}; plain "
+          f"{t_plain:.1f} ms; bound {bound_ms:.4f} ms (float32 operations) "
+          f"on {card_line()}")
+    del got, again, plain, d, flows, frames
+    kw = {k: cfg[k] for k in ("reference_channel", "capacity",
+                              "search_range", "memory")}
+    tipt.reset_launches()
+    t0 = time.perf_counter()
+    out = movie_pipeline(movie, device=dev, cellpose=program.kwargs["cellpose"],
+                         **kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    c = tipt._device.COUNTS
+    path = tipt.LAUNCHES["follow_flows"]
+    T = movie.shape[0]
+    assert path == T // int(cfg["batch"]), tipt.LAUNCHES
+    print(f"cellpose pipeline: {T} frames in {secs:.2f} s (first call), "
+          f"{path} follow_flows launches; masks found {c['cp_masks_found']}, "
+          f"kept {c['cp_masks_kept']}, cells a frame "
+          f"{out['tables'].valid_mask().sum(1).tolist()}; diffusion "
+          f"iterations {c['qc_iters']}")
+    return {"launches": path, "followed_px": followed, "steps": steps,
+            "frames": B, "ms": ms[0], "ms_min": ms[1], "ms_max": ms[2],
+            "kernels_us": split, "plain_ms": t_plain, "bound_ms": bound_ms,
+            "bound_by": "float32 operations", "max_abs_err": 0.0}
 
 
 def check_card_vs_cpu():
@@ -4609,9 +4697,10 @@ def main(argv=()) -> int:
     line."""
     import torch
 
-    if list(argv) not in ([], ["parallel"], ["cards"], ["radii"]):
-        print("usage: python3 chip_smoke.py [parallel | cards | radii]",
-              file=sys.stderr)
+    if list(argv) not in ([], ["parallel"], ["cards"], ["radii"],
+                          ["cellpose"]):
+        print("usage: python3 chip_smoke.py [parallel | cards | radii | "
+              "cellpose]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -4633,6 +4722,10 @@ def main(argv=()) -> int:
 
     if argv == ["radii"]:
         print(json.dumps({"radii_sweep": check_radii(card)}))
+        print(card_line())
+        return 0
+    if argv == ["cellpose"]:
+        print(json.dumps({"follow_flows": check_cellpose(card)}))
         print(card_line())
         return 0
     if argv:
@@ -4666,6 +4759,7 @@ def main(argv=()) -> int:
     unet_launches, unet_blur_shapes, int8_launches, int8_forms = \
         check_unet_pipeline(card, movie_z30)
     radii_row = check_radii(card)
+    follow_row = check_cellpose(card)
     check_card_vs_cpu()
     check_keras_weights(card)
     check_training(card)
@@ -4751,6 +4845,10 @@ def main(argv=()) -> int:
                   "replaces": "none (host numpy / scipy in the JAX package: "
                               "core/tracking.py:adaptive_effective_ranges)",
                   **radii_row})
+    table.append({"name": "follow_flows", "route": "cuda",
+                  "source": KERNEL_SOURCE["follow_flows"],
+                  "replaces": "none (the JAX package has no Cellpose)",
+                  **follow_row})
     # blur3d at the unfused projection's shapes (the driver, the
     # frame-sharded pipelines, band_pass_filter, the production envelope,
     # the space shards): the form each ran and the generic form's time

@@ -176,12 +176,26 @@ def actions(parser):
             for name, sp in sub.choices.items()}
 
 
+# the port's pipeline segments with Cellpose too, which the JAX package
+# lacks: these two options are its own
+CELLPOSE_OPTIONS = {
+    ("--cellpose",): ("cellpose", "None", None),
+    ("--cp-diameter",): ("cp_diameter", "None", float)}
+
+
 def test_parser_matches_jax():
     want = actions(jcli.build_parser())
     got = actions(tcli.build_parser())
     assert sorted(got) == sorted(want) == sorted(
         ["segment", "pipeline", "unet", "types", "track", "events", "export",
          "analyze", "warmup", "view"])
+    own = {r[0]: r for r in got["pipeline"] if r[0] in CELLPOSE_OPTIONS}
+    assert sorted(own) == sorted(CELLPOSE_OPTIONS)
+    for opt, (dest, default, typ) in CELLPOSE_OPTIONS.items():
+        assert own[opt][1:3] == (dest, default), opt
+        assert own[opt][5] is typ, opt
+    got["pipeline"] = [r for r in got["pipeline"]
+                       if r[0] not in CELLPOSE_OPTIONS]
     for name in want:
         assert got[name] == want[name], name
 

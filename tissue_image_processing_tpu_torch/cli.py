@@ -157,7 +157,21 @@ def cmd_pipeline(args):
                        if args.channel in channels else 0)
         kw["reference_channel"] = ref_in_pair
         kw["unet"] = _build_unet_config(args, store, channels, ref_in_pair)
+    elif getattr(args, "cellpose", None):
+        # Cellpose segmentation: a user's v2 cyto* state_dict, loaded
+        # strictly; the network takes the (zo, atoh) pair as its
+        # (cytoplasm, nucleus) channels
+        from tissue_image_processing_tpu_torch.models.cellpose import (
+            CellposePredictor)
+
+        channels = (args.zo_channel, args.atoh_channel)
+        kw["reference_channel"] = (channels.index(args.channel)
+                                   if args.channel in channels else 0)
+        kw["cellpose"] = CellposePredictor(
+            args.cellpose, diameter=args.cp_diameter, channels=(0, 1),
+            device=args.device).pipeline_config()
     per_launch = (args.unet_batch if getattr(args, "unet", False)
+                  else kw["cellpose"]["batch"] if "cellpose" in kw
                   else args.batch)
     chunk = (args.chunk if args.chunk is not None
              else _auto_chunk_frames(store, multiple=per_launch))
@@ -511,6 +525,14 @@ def build_parser():
                          "2 = its training variant)")
     sp.add_argument("--unet-filters", dest="unet_filters", type=int,
                     default=128, help="first conv block's filter count")
+    sp.add_argument("--cellpose", default=None, metavar="WEIGHTS",
+                    help="segment with Cellpose v2: a cyto/cyto2/cyto3 "
+                         "state_dict file, loaded strictly; its (cytoplasm, "
+                         "nucleus) channels are --zo-channel, --atoh-channel")
+    sp.add_argument("--cp-diameter", dest="cp_diameter", type=float,
+                    default=None, help="cell diameter in pixels for "
+                                       "--cellpose (default: the model's "
+                                       "diam_mean)")
     sp.set_defaults(fn=cmd_pipeline)
 
     sp = sub.add_parser("unet", help="U-Net segmentation")

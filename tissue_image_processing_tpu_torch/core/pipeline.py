@@ -16,6 +16,13 @@ A Z == 1 movie is pre-projected and skips this.
   Bellman-Ford phase). Its labels
   live in x-major space while its drift chain runs on the y-major
   projection, with the two drift columns swapped to match.
+- The Cellpose branch (``cellpose=``) keeps every channel too: the
+  network's flows from tiles of ``batch`` frames at once
+  (``models/cellpose.py``), then a frame at a time flow following
+  (``csrc/follow_flows.cu``, built at its first call), the histogram
+  masks, the flow check and the hole filling (``ops/flows.py``); labels
+  are transposed to x-major space at the end and drifts measured as on the
+  U-Net branch.
 
 Tables and the drift chain run as tensor code on the same device, the
 adaptive radii are one level sweep over the tables there (on the card the
@@ -37,8 +44,10 @@ from tissue_image_processing_tpu_torch.core.cell_table import (
     CellTable, frame_cellinfo_checked, stack_tables)
 from tissue_image_processing_tpu_torch.core.tracking import (
     TrackingState, adaptive_radii, compute_drift_chain, track_movie)
+from tissue_image_processing_tpu_torch.models.cellpose import CellposeRunner
 from tissue_image_processing_tpu_torch.models.predictor import (
     prepare_batch, unet_from_config, unet_postprocess_batch)
+from tissue_image_processing_tpu_torch.ops.flows import follow, frame_masks
 from tissue_image_processing_tpu_torch.ops.watershed import (
     watershed_segmentation_batch)
 from tissue_image_processing_tpu_torch.projection.surface import (
@@ -209,14 +218,77 @@ def _segment_program_unet(prj: torch.Tensor, model,
     return labels, tabs, drifts, overflow, refs[-1]
 
 
+def _cellpose_labels(flows: torch.Tensor, runner,
+                     timings: Optional[Dict[str, float]]) -> torch.Tensor:
+    """(B, 3, Y, X) flows and cell-probability logits -> (B, X, Y) int32
+    labels in x-major space: the group's flows followed in one launch, then
+    a frame at a time the histogram masks, the flow check and the hole
+    filling (``ops/flows.py:frame_masks``)."""
+    dev = flows.device
+    with _span(timings, "follow", dev):
+        p, m, followed = follow(flows[:, :2], flows[:, 2], runner.niter,
+                                runner.cellprob_threshold)
+
+    def span(name):
+        return _span(timings, name, dev)
+    out = [frame_masks(p[j], m[j], flows[j, :2], int(followed[j]),
+                       runner.flow_threshold, runner.min_size, span)
+           for j in range(flows.shape[0])]
+    return torch.stack(out).transpose(1, 2).contiguous()
+
+
+def _segment_program_cellpose(prj: torch.Tensor, runner,
+                              prev_ref: Optional[torch.Tensor],
+                              reference_channel: int, capacity: int,
+                              timings: Optional[Dict[str, float]] = None):
+    """Cellpose twin of :func:`_segment_program_unet` on (T, C, Y, X)
+    projections: frames go through the network's tiles ``runner.batch`` at
+    a time (spans ``cp_tiles`` around the tiles' making and blending,
+    ``cpnet`` around the forward alone), then to masks; labels come back in
+    x-major (X, Y) space and the drifts, measured on the y-major
+    projection, are column-swapped to match."""
+    T, dev = prj.shape[0], prj.device
+    Y, X = prj.shape[-2:]
+    labels = []
+    for i in range(0, T, runner.batch):
+        with _span(timings, "cp_tiles", dev):
+            tiles = runner.tiles(prj[i:i + runner.batch])
+        with _span(timings, "cpnet", dev):
+            y = runner.forward(tiles)
+        with _span(timings, "cp_tiles", dev):
+            flows = runner.blend(y, Y, X)
+        del tiles, y
+        labels.append(_cellpose_labels(flows, runner, timings))
+        del flows
+    labels = torch.cat(labels)
+    tabs, overflow = _tables(labels, capacity, timings)
+    refs = prj[:, reference_channel]
+    drifts = _drifts(refs, prev_ref, timings).flip(1)
+    return labels, tabs, drifts, overflow, refs[-1]
+
+
 def _segmenter(dev: torch.device, unet: Optional[dict],
                reference_channel: int, threshold: float, std: float,
-               block_size: int, capacity: int, batch: int, airyscan: bool):
+               block_size: int, capacity: int, batch: int, airyscan: bool,
+               cellpose: Optional[dict] = None):
     """``segment(movie, prev_ref, timings=None)`` for one run: projects a
     (T, C, Z, Y, X) run of frames and segments it with the U-Net when a
-    ``unet`` configuration is given (the model is built once, here), else
-    with the watershed. Returns labels, tables, drifts, overflow flags and
-    the frame the next chunk's drift chain starts from."""
+    ``unet`` configuration is given, with Cellpose when a ``cellpose`` one
+    is (either model is built once, here), else with the watershed.
+    Returns labels, tables, drifts, overflow flags and the frame the next
+    chunk's drift chain starts from."""
+    if unet is not None and cellpose is not None:
+        raise ValueError("give unet= or cellpose=, not both")
+    if cellpose is not None:
+        runner = CellposeRunner(cellpose, dev)
+
+        def segment(movie, prev_ref, timings=None):
+            prj = _projections(movie, reference_channel, dev, airyscan,
+                               timings)
+            return _segment_program_cellpose(prj, runner, prev_ref,
+                                             reference_channel, capacity,
+                                             timings)
+        return segment
     if unet is None:
         def segment(movie, prev_ref, timings=None):
             refs_t = _reference_frames(movie, reference_channel, dev, airyscan,
@@ -240,7 +312,8 @@ def movie_pipeline(movie, *, reference_channel: int = 0,
                    batch: int = 2, airyscan: bool = False,
                    search_range: float = 100.0,
                    memory: int = 3, drifts: Optional[np.ndarray] = None,
-                   unet: Optional[dict] = None, device=None,
+                   unet: Optional[dict] = None,
+                   cellpose: Optional[dict] = None, device=None,
                    timings: Optional[Dict[str, float]] = None):
     """(T, C, Z, Y, X) movie (numpy array or tensor, uint16 or float) ->
     dict with per-frame ``labels`` (T, X, Y — the reference's transposed
@@ -259,8 +332,14 @@ def movie_pipeline(movie, *, reference_channel: int = 0,
     parameters (``models/quant.py:quantize_unet``) and the forward is
     ``unet_int8_apply``'s, its 3x3 convs the ``conv3x3_s8`` kernel.
 
+    ``cellpose`` segments with Cellpose v2: a dict from
+    :meth:`CellposePredictor.pipeline_config` (``params``, a ``CPnet``
+    ``state_dict``, and ``diameter``, ``channels`` — the frame's (membrane,
+    nucleus) indices —, ``batch``, ``niter`` and the thresholds).
+
     A ``timings`` dict receives the seconds of each stage (upload, project
     when Z > 1, segment — or normalize, unet and postprocess on the U-Net
+    branch, cp_tiles, cpnet, follow, masks and flow_qc on the Cellpose
     branch — tables, drift, adaptive_radii, track), each ending in a device
     synchronize, and makes each stage a ``stage.<name>`` event of the
     profiler (``_span``): a call with ``timings={}`` inside
@@ -269,7 +348,7 @@ def movie_pipeline(movie, *, reference_channel: int = 0,
     _check_movie(movie.shape)
     dev = resolve_device(device)
     segment = _segmenter(dev, unet, reference_channel, threshold, std,
-                         block_size, capacity, batch, airyscan)
+                         block_size, capacity, batch, airyscan, cellpose)
     labels, tabs, dr, overflow, _ = segment(movie, None, timings)
     if drifts is not None:
         dr = drifts
@@ -298,6 +377,7 @@ def movie_pipeline_chunked(store, *, chunk_frames: int,
                            search_range: float = 100.0, memory: int = 3,
                            on_chunk=None, keep_labels: bool = True,
                            unet: Optional[dict] = None,
+                           cellpose: Optional[dict] = None,
                            channels: Optional[Sequence[int]] = None,
                            device=None):
     """Streaming form of :func:`movie_pipeline` for movies larger than the
@@ -310,7 +390,8 @@ def movie_pipeline_chunked(store, *, chunk_frames: int,
 
     ``on_chunk(t0, chunk_dict)`` receives each chunk's host arrays; with
     ``keep_labels=False`` (or an ``on_chunk``) labels are not kept.
-    ``unet`` segments with the U-Net (see :func:`movie_pipeline`);
+    ``unet`` segments with the U-Net and ``cellpose`` with Cellpose (see
+    :func:`movie_pipeline`);
     ``channels`` selects channels of each host chunk before upload, for
     example the (atoh, zo) pair the model expects. Returns the same dict as
     :func:`movie_pipeline` with host arrays (``labels`` is None when not
@@ -319,7 +400,7 @@ def movie_pipeline_chunked(store, *, chunk_frames: int,
     _check_movie(data.shape)
     dev = resolve_device(device)
     segment = _segmenter(dev, unet, reference_channel, threshold, std,
-                         block_size, capacity, batch, airyscan)
+                         block_size, capacity, batch, airyscan, cellpose)
     T = data.shape[0]
     C = max(1, min(int(chunk_frames), T))
     state = TrackingState.empty(2 * capacity, dev)
