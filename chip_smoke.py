@@ -198,8 +198,14 @@ Phases (any failure exits non-zero; no phase catches and continues):
    200 steps, bit for bit (two kernel runs equal too), the kernel's device
    time by graph-free CUDA-event brackets and by the profiler, the plain
    version's, the followed pixels and the bound of
-   ``benchmark/costs/follow.py``; then the Cellpose ``movie_pipeline`` on
-   that movie, one ``follow_flows`` launch a group of frames;
+   ``benchmark/costs/follow.py``; then the flow check's diffusion
+   (``csrc/flow_diffuse.cu``, ``check_flow_diffuse``) on the first frame's
+   masks against the plain whole-frame loop on the CPU, bit for bit (the
+   global form too), timed by events and by the profiler beside the plain
+   loop on the card and the bound of ``benchmark/costs/flow_qc.py``; then
+   the Cellpose ``movie_pipeline`` on that movie, one ``follow_flows``
+   launch a group of frames and one ``flow_diffuse`` launch a size class
+   a frame, none of the global form;
 11. print the kernel table as one JSON object (launches from the Z=30
     watershed run, the component minimum's from the U-Net run, the int8
     conv's from the int8 U-Net run, with its launches by form — its times
@@ -257,6 +263,7 @@ KERNEL_SOURCE = {
     "conv3x3_s8": "tissue_image_processing_tpu_torch/csrc/conv_s8.cu",
     "radii_sweep": "tissue_image_processing_tpu_torch/csrc/radii.cu",
     "follow_flows": "tissue_image_processing_tpu_torch/csrc/follow_flows.cu",
+    "flow_diffuse": "tissue_image_processing_tpu_torch/csrc/flow_diffuse.cu",
 }
 FLOOD_SOURCE = "tissue_image_processing_tpu_torch/csrc/flood.cu"
 REPLACES = {
@@ -1817,7 +1824,8 @@ def check_cellpose(card: str, seed: int = 2026101821) -> dict:
     from tissue_image_processing_tpu_torch.core.pipeline import movie_pipeline
     from tissue_image_processing_tpu_torch.models.cellpose import (
         CellposeRunner)
-    from tissue_image_processing_tpu_torch.ops.flows import follow_plain
+    from tissue_image_processing_tpu_torch.ops.flows import (
+        follow_plain, get_masks)
     from tissue_image_processing_tpu_torch.ops.flows_cuda import follow_cuda
 
     root = Path(__file__).resolve().parent
@@ -1857,7 +1865,9 @@ def check_cellpose(card: str, seed: int = 2026101821) -> dict:
           f"kernel {spread(ms)}, by the profiler (us a call) {split}; plain "
           f"{t_plain:.1f} ms; bound {bound_ms:.4f} ms (float32 operations) "
           f"on {card_line()}")
+    labels, n = get_masks(got[0], m[0])
     del got, again, plain, d, flows, frames
+    diffuse_row = check_flow_diffuse(labels, n)
     kw = {k: cfg[k] for k in ("reference_channel", "capacity",
                               "search_range", "memory")}
     tipt.reset_launches()
@@ -1870,15 +1880,77 @@ def check_cellpose(card: str, seed: int = 2026101821) -> dict:
     path = tipt.LAUNCHES["follow_flows"]
     T = movie.shape[0]
     assert path == T // int(cfg["batch"]), tipt.LAUNCHES
+    diffuse = tipt.LAUNCHES["flow_diffuse"]
+    assert diffuse > 0 and tipt.LAUNCHES["flow_diffuse_global"] == 0, \
+        tipt.LAUNCHES
     print(f"cellpose pipeline: {T} frames in {secs:.2f} s (first call), "
           f"{path} follow_flows launches; masks found {c['cp_masks_found']}, "
           f"kept {c['cp_masks_kept']}, cells a frame "
           f"{out['tables'].valid_mask().sum(1).tolist()}; diffusion "
-          f"iterations {c['qc_iters']}")
+          f"iterations {c['qc_iters']}, {diffuse} flow_diffuse launches "
+          f"({diffuse / T:.2f} a frame), masks in the global form "
+          f"{c['qc_masks_global']}")
+    diffuse_row["launches"] = diffuse
     return {"launches": path, "followed_px": followed, "steps": steps,
             "frames": B, "ms": ms[0], "ms_min": ms[1], "ms_max": ms[2],
             "kernels_us": split, "plain_ms": t_plain, "bound_ms": bound_ms,
-            "bound_by": "float32 operations", "max_abs_err": 0.0}
+            "bound_by": "float32 operations", "max_abs_err": 0.0}, diffuse_row
+
+
+def check_flow_diffuse(labels, n: int) -> dict:
+    """The flow check's diffusion (``csrc/flow_diffuse.cu``) on one 2000^2
+    frame's masks of the trained traffic: the kernel against the plain
+    whole-frame loop on the CPU, bit for bit (two kernel runs equal, the
+    global form equal too), its launches timed by CUDA events and by the
+    profiler, the plain loop on the card (today's path before the kernel;
+    its division multiplies by the reciprocal, so it is compared by its
+    largest relative difference), the global form, and the bound of
+    ``benchmark/costs/flow_qc.py``. Returns the kernel table's row."""
+    import torch
+
+    import tissue_image_processing_tpu_torch as tipt
+    from benchmark.costs.flow_qc import least_flow_qc_seconds
+    from tissue_image_processing_tpu_torch.ops import flow_diffuse_cuda as fd
+    from tissue_image_processing_tpu_torch.ops.flows import (
+        _geometry, diffuse_plain)
+
+    boxes, centre = _geometry(labels, n)
+    p = fd.plan(labels, boxes, centre)
+    tipt.reset_launches()
+    got = fd.run(p)
+    assert torch.equal(got, fd.run(p)), "two runs of flow_diffuse differ"
+    launches = tipt.LAUNCHES["flow_diffuse"] // 2
+    t0 = time.perf_counter()
+    plain = diffuse_plain(labels.cpu(), centre.cpu(), p.n_iter)
+    cpu_s = time.perf_counter() - t0
+    assert torch.equal(got.cpu(), plain), "flow_diffuse != its plain loop"
+    g = fd.plan(labels, boxes, centre, form="global")
+    glob = fd.run(g)
+    assert torch.equal(glob, got), "the global form != the shared form"
+    on_card = diffuse_plain(labels, centre, p.n_iter)
+    rel = float(((on_card - got).abs() / got.abs().clamp(min=1e-300)).max())
+    ms = cuda_ms_spread(lambda: fd.run(p), 3)
+    split = kernel_split(lambda: fd.run(p), 3)
+    t_plain = host_ms(lambda: (diffuse_plain(labels, centre, p.n_iter),
+                               torch.cuda.synchronize()), 1)
+    t_global = cuda_ms(lambda: fd.run(g), 1)
+    Y, X = labels.shape
+    bound_ms = least_flow_qc_seconds(Y * X, p.pixels * p.n_iter) * 1e3
+    print(f"cellpose flow_diffuse: kernel == plain loop (CPU, {cpu_s:.1f} s) "
+          f"bit for bit on one 2000^2 frame, {n} masks, {p.pixels} mask "
+          f"pixels, {p.n_iter} iterations, {launches} launches (masks per "
+          f"size class {p.per_class}, largest padded boxes {p.largest}, "
+          f"global form {p.n_global}); kernel {spread(ms)}, by the profiler "
+          f"(us a call) {split}; plain loop on the card {t_plain:.1f} ms "
+          f"(largest relative difference {rel:.3e}); global form "
+          f"{t_global:.2f} ms; bound {bound_ms:.4f} ms (float64 operations) "
+          f"on {card_line()}")
+    return {"masks": n, "mask_px": p.pixels, "iterations": p.n_iter,
+            "launches_a_frame": launches, "ms": ms[0], "ms_min": ms[1],
+            "ms_max": ms[2], "kernels_us": split, "plain_ms": t_plain,
+            "plain_card_max_rel": rel, "global_ms": t_global,
+            "bound_ms": bound_ms, "bound_by": "float64 operations",
+            "max_abs_err": 0.0}
 
 
 def check_card_vs_cpu():
@@ -4725,7 +4797,9 @@ def main(argv=()) -> int:
         print(card_line())
         return 0
     if argv == ["cellpose"]:
-        print(json.dumps({"follow_flows": check_cellpose(card)}))
+        follow_row, diffuse_row = check_cellpose(card)
+        print(json.dumps({"follow_flows": follow_row,
+                          "flow_diffuse": diffuse_row}))
         print(card_line())
         return 0
     if argv:
@@ -4759,7 +4833,7 @@ def main(argv=()) -> int:
     unet_launches, unet_blur_shapes, int8_launches, int8_forms = \
         check_unet_pipeline(card, movie_z30)
     radii_row = check_radii(card)
-    follow_row = check_cellpose(card)
+    follow_row, diffuse_row = check_cellpose(card)
     check_card_vs_cpu()
     check_keras_weights(card)
     check_training(card)
@@ -4849,6 +4923,10 @@ def main(argv=()) -> int:
                   "source": KERNEL_SOURCE["follow_flows"],
                   "replaces": "none (the JAX package has no Cellpose)",
                   **follow_row})
+    table.append({"name": "flow_diffuse", "route": "cuda",
+                  "source": KERNEL_SOURCE["flow_diffuse"],
+                  "replaces": "none (the JAX package has no Cellpose)",
+                  **diffuse_row})
     # blur3d at the unfused projection's shapes (the driver, the
     # frame-sharded pipelines, band_pass_filter, the production envelope,
     # the space shards): the form each ran and the generic form's time

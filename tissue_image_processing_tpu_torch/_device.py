@@ -11,8 +11,8 @@ to ``BLUR_LAUNCHES[(Z, Y, X, tz, ty, tx)]`` and ``BLUR_FORMS[form]``, and
 the int8 conv, which has three forms, to ``CONV_LAUNCHES[form]``. Work that
 is not a kernel launch is counted in ``COUNTS[name]`` by :func:`count`
 (``upload_bytes``, ``auction_rounds``, ``radii_solves``, and Cellpose's
-``cp_tiles``, ``follow_px``, ``qc_iters``, ``cp_masks_found``,
-``cp_masks_kept``), once for each
+``cp_tiles``, ``follow_px``, ``qc_iters``, ``qc_px_iters``,
+``qc_masks_global``, ``cp_masks_found``, ``cp_masks_kept``), once for each
 call of the counting function. ``reset_launches()`` zeroes every count so a caller
 can show that a run went through the kernels.
 
@@ -47,7 +47,7 @@ DEFAULT_BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_ke
 # where built libraries are kept; utils/runtime.enable_compilation_cache moves it
 BUILD_DIR = DEFAULT_BUILD_DIR
 KERNEL_SOURCES = ("blur3d", "flood", "projection", "cc_scan", "conv_s8",
-                  "radii", "follow_flows")
+                  "radii", "follow_flows", "flow_diffuse")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -55,7 +55,8 @@ LAUNCHES: Dict[str, int] = {"blur3d": 0, "diffusion_bf": 0,
                             "diffusion_cc": 0, "settle_mask": 0, "settle": 0,
                             "proj_score": 0, "proj_project": 0, "cc_scan": 0,
                             "conv3x3_s8": 0, "radii_sweep": 0,
-                            "follow_flows": 0}
+                            "follow_flows": 0, "flow_diffuse": 0,
+                            "flow_diffuse_global": 0}
 # blur3d launches by (Z, Y, X, tz, ty, tx)
 BLUR_LAUNCHES: collections.Counter = collections.Counter()
 # blur3d launches by form ("z_only", "tile25", "walk", "generic")

@@ -15,7 +15,11 @@ path (``steps2D_interp`` with ``map_coordinates``; the GPU path's
    appearance;
 3. :func:`remove_bad_flow_masks` — each mask's flow rebuilt by heat
    diffusion from its centre in float64 (``masks_to_flows_gpu``), masks
-   whose mean squared flow error exceeds the threshold dropped;
+   whose mean squared flow error exceeds the threshold dropped; the
+   diffusion (:func:`diffusion`) runs every mask inside its own box in
+   shared memory for all its iterations on the card
+   (``csrc/flow_diffuse.cu``, one launch a size class of boxes), the
+   whole-frame loop :func:`diffuse_plain` elsewhere; bit for bit the same;
 4. :func:`fill_holes_and_remove_small_masks` — in label order, masks under
    ``min_size`` pixels dropped, the others' holes filled and relabelled
    1..K.
@@ -24,8 +28,10 @@ path (``steps2D_interp`` with ``map_coordinates``; the GPU path's
 one frame through steps 2-4. No step loops over masks on the host. The host reads, each once a frame:
 the number of followed pixels (:func:`follow`, one vector a batch of
 frames), the number of masks found, the diffusion's iteration count (a
-maximum), the masks per size class of the hole filling, and one change
-flag with the masks kept (again once a round where masks enclose masks).
+maximum; on the card one vector with the mask pixels and the masks per
+size class of the diffusion), the masks per size class of the hole
+filling, and one change flag with the masks kept (again once a round where
+masks enclose masks).
 """
 
 from __future__ import annotations
@@ -39,8 +45,8 @@ import torch.nn.functional as F
 from tissue_image_processing_tpu_torch._device import count
 from tissue_image_processing_tpu_torch.ops.components import _component_roots
 
-__all__ = ["follow", "follow_plain", "get_masks", "masks_to_flows",
-           "flow_error", "remove_bad_flow_masks",
+__all__ = ["follow", "follow_plain", "get_masks", "diffuse_plain",
+           "diffusion", "masks_to_flows", "flow_error", "remove_bad_flow_masks",
            "fill_holes_and_remove_small_masks", "frame_masks"]
 
 RPAD = 20
@@ -168,49 +174,59 @@ def _label_boxes(labels: torch.Tensor, N: int):
             red(xs, "amin", big), red(xs, "amax", -1))
 
 
-def _medians(flat: torch.Tensor, coord: torch.Tensor, cnt: torch.Tensor,
-             scale: int) -> torch.Tensor:
-    """float64 median of ``coord`` over each label's pixels (numpy's: the
-    mean of the two middle values for an even count); ``flat`` > 0 only."""
-    key = torch.sort(flat * scale + coord).values
-    vals = key - (key // scale) * scale
-    start = torch.cumsum(cnt, 0) - cnt - cnt[0]
-    lo = (start + (cnt - 1) // 2).clamp(min=0, max=max(vals.numel() - 1, 0))
-    hi = (start + cnt // 2).clamp(min=0, max=max(vals.numel() - 1, 0))
-    return (vals[lo].to(torch.float64) + vals[hi].to(torch.float64)) / 2
-
-
-def masks_to_flows(masks: torch.Tensor, N: int) -> Tuple[torch.Tensor, int]:
-    """Cellpose v2's ``masks_to_flows_gpu`` on (Y, X) labels 1..N (all
-    present): (2, Y, X) float64 unit flows (zero off the masks) and the
-    iteration count. Each mask's centre is its pixel nearest the (median y,
-    median x) of its pixels, the first in row-major order on a tie; n_iter
-    = 2 x the largest (ly + lx) with ly, lx the bounding-box sides + 1 (the
-    one host read); each iteration adds 1 at every centre, then sets every
-    mask pixel to the sum, in v2's neighbour order, of its 3 x 3 neighbours
-    in the same mask, over 9. Then log(1 + T), central differences and
-    division by 1e-20 + the norm. Adds n_iter to ``COUNTS["qc_iters"]``."""
+def _geometry(masks: torch.Tensor, N: int):
+    """((count, y0, y1, x0, x1), centre) of (Y, X) labels 0..N: the counts
+    and boxes of :func:`_label_boxes` (label 0's count 0 here) and the (N,)
+    frame index of each mask's centre, its pixel nearest the (median y,
+    median x) of its pixels (numpy's median: the mean of the two middle
+    values for an even count), the first in row-major order on a tie (Y *
+    X for an absent label). The boxes' ends and the medians come from the
+    same two sorts of the mask pixels by (label, y) and (label, x): no
+    reduction over the background, whose ~15% of the frame would all land
+    on label 0."""
     Y, X = masks.shape
     dev = masks.device
     lab = masks.reshape(-1).to(torch.int64)
-    cnt, y0, y1, x0, x1 = _label_boxes(masks, N)
-    ext = (y1 - y0 + 2) + (x1 - x0 + 2)
-    n_iter = 2 * int(ext[1:].max())
-    count("qc_iters", n_iter)
     on = lab > 0
     idx = torch.arange(lab.numel(), device=dev)[on]
     fl = lab[on]
     ys, xs = idx // X, idx % X
-    ymed = _medians(fl, ys, cnt, Y)
-    xmed = _medians(fl, xs, cnt, X)
-    dist = ((xs.to(torch.float64) - xmed[fl]) ** 2
-            + (ys.to(torch.float64) - ymed[fl]) ** 2)
+    cnt = torch.zeros(N + 1, dtype=torch.int64, device=dev)
+    cnt.index_add_(0, fl, torch.ones_like(fl))
+    present = cnt > 0
+    start = torch.cumsum(cnt, 0) - cnt
+    end = max(fl.numel() - 1, 0)
+    at = [(start + k).clamp(min=0, max=end) for k in
+          ((cnt - 1) // 2, cnt // 2, torch.zeros_like(cnt), cnt - 1)]
+    ends, med = [], []
+    for coord, size in ((ys, Y), (xs, X)):
+        key = torch.sort(fl * size + coord).values
+        vals = key - (key // size) * size
+        lo, hi, first, last = (vals[i] for i in at)
+        med.append((lo.to(torch.float64) + hi.to(torch.float64)) / 2)
+        ends += [torch.where(present, first, Y * X),
+                 torch.where(present, last, -1)]
+    dist = ((xs.to(torch.float64) - med[1][fl]) ** 2
+            + (ys.to(torch.float64) - med[0][fl]) ** 2)
     near = torch.full((N + 1,), float("inf"), dtype=torch.float64, device=dev)
     near.scatter_reduce_(0, fl, dist, "amin")
     pick = torch.where(dist == near[fl], idx, Y * X)
     centre = torch.full((N + 1,), Y * X, dtype=torch.int64, device=dev)
     centre.scatter_reduce_(0, fl, pick, "amin")
-    centre = centre[1:]
+    return (cnt, *ends), centre[1:]
+
+
+def diffuse_plain(masks: torch.Tensor, centre: torch.Tensor,
+                  n_iter: int) -> torch.Tensor:
+    """Plain version of ``csrc/flow_diffuse.cu``: the (Y + 2, X + 2)
+    float64 T after ``n_iter`` iterations over the whole padded frame, each
+    adding 1 at every centre (``centre``: (N,) frame indices), then setting
+    every pixel to the sum, in v2's neighbour order, of its 3 x 3
+    neighbours in the same mask, over 9. Eleven launches an iteration on
+    the card, whose division by 9 multiplies by the reciprocal; on the CPU
+    it divides, as the kernel does."""
+    Y, X = masks.shape
+    dev = masks.device
     cflat = (centre // X + 1) * (X + 2) + centre % X + 1
     padded = F.pad(masks.to(torch.int64), (1, 1, 1, 1))
     inner = padded[1:-1, 1:-1]
@@ -230,33 +246,72 @@ def masks_to_flows(masks: torch.Tensor, N: int) -> Tuple[torch.Tensor, int]:
             acc.addcmul_(T[1 + dy:Y + 1 + dy, 1 + dx:X + 1 + dx], weights[k])
         acc.div_(9.0)
         T, nxt = nxt, T
-    del weights, nxt
+    return T
+
+
+def diffusion(masks: torch.Tensor, N: int) -> Tuple[torch.Tensor, int]:
+    """Cellpose v2's ``masks_to_flows_gpu`` heat diffusion on (Y, X) labels
+    1..N (all present): ((Y + 2, X + 2) float64 T, n_iter). Each mask's
+    centre and box come from :func:`_geometry`; n_iter = 2 x the largest
+    (ly + lx) with ly, lx the bounding-box sides + 1. On the card
+    ``csrc/flow_diffuse.cu`` (one host read: n_iter with the masks per size
+    class), elsewhere :func:`diffuse_plain` (the one host read: n_iter);
+    the same T bit for bit. Adds n_iter to ``COUNTS["qc_iters"]`` and the
+    mask pixels x n_iter to ``COUNTS["qc_px_iters"]``."""
+    boxes, centre = _geometry(masks, N)
+    cnt, y0, y1, x0, x1 = boxes
+    if masks.device.type == "cuda":
+        from tissue_image_processing_tpu_torch.ops import flow_diffuse_cuda
+        p = flow_diffuse_cuda.plan(masks.to(torch.int32).contiguous(), boxes,
+                                   centre)
+        T, n_iter, pixels = flow_diffuse_cuda.run(p), p.n_iter, p.pixels
+    else:
+        ext = (y1 - y0 + 2) + (x1 - x0 + 2)
+        n_iter = 2 * int(ext[1:].max())
+        pixels = int(cnt[1:].sum())
+        T = diffuse_plain(masks, centre, n_iter)
+    count("qc_iters", n_iter)
+    count("qc_px_iters", pixels * n_iter)
+    return T, n_iter
+
+
+def masks_to_flows(masks: torch.Tensor, N: int) -> Tuple[torch.Tensor, int]:
+    """Cellpose v2's ``masks_to_flows_gpu`` on (Y, X) labels 1..N (all
+    present): (2, Y, X) float64 unit flows (zero off the masks) and the
+    iteration count. T from :func:`diffusion`, then log(1 + T), central
+    differences and division by 1e-20 + the norm."""
+    T, n_iter = diffusion(masks, N)
     T = torch.log(1.0 + T)
     dy = T[2:, 1:-1] - T[:-2, 1:-1]
     dx = T[1:-1, 2:] - T[1:-1, :-2]
     norm = torch.sqrt(dy * dy + dx * dx)
-    inside = inner > 0
+    inside = masks > 0
     mu = torch.stack([torch.where(inside, dy / (1e-20 + norm), 0.0),
                       torch.where(inside, dx / (1e-20 + norm), 0.0)])
     return mu, n_iter
 
 
 def flow_error(masks: torch.Tensor, dP: torch.Tensor, N: int) -> torch.Tensor:
-    """(N + 1,) float64 flow errors of labels 0..N (entry 0 unused): the sum
-    over the two channels of each mask's mean of (mu - dP / 5)^2, mu from
-    :func:`masks_to_flows`. The per-mask sums are scatter-adds, whose order
-    is free on the card: an error within ~1e-13 of the threshold may round
-    either way."""
+    """(N + 1,) float64 flow errors of labels 0..N (entry 0 unused, 0): the
+    sum over the two channels of each mask's mean of (mu - dP / 5)^2, mu
+    from :func:`masks_to_flows`. The per-mask sums are scatter-adds, whose
+    order is free on the card: an error within ~1e-13 of the threshold may
+    round either way. The background's pixels are spread over 1024 spare
+    slots, so that ~15% of the frame's adds do not all wait on one
+    address."""
     mu, _ = masks_to_flows(masks, N)
     lab = masks.reshape(-1).to(torch.int64)
-    cnt = torch.zeros(N + 1, dtype=torch.float64, device=masks.device)
-    cnt.index_add_(0, lab, torch.ones_like(lab, dtype=torch.float64))
+    spare = torch.arange(lab.numel(), device=masks.device) % 1024 + N + 1
+    at = torch.where(lab > 0, lab, spare)
+    cnt = torch.zeros(N + 1025, dtype=torch.float64, device=masks.device)
+    cnt.index_add_(0, at, torch.ones_like(at, dtype=torch.float64))
+    cnt = cnt[:N + 1].clamp(min=1)
     err = torch.zeros(N + 1, dtype=torch.float64, device=masks.device)
     for c in range(2):
         sq = (mu[c] - (dP[c] / 5.0).to(torch.float64)) ** 2
-        s = torch.zeros(N + 1, dtype=torch.float64, device=masks.device)
-        s.index_add_(0, lab, sq.reshape(-1))
-        err = err + s / cnt
+        s = torch.zeros(N + 1025, dtype=torch.float64, device=masks.device)
+        s.index_add_(0, at, sq.reshape(-1))
+        err = err + s[:N + 1] / cnt
     return err
 
 
