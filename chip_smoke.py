@@ -4789,7 +4789,7 @@ def main(argv=()) -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {log.name}: {line.strip()}")
 
-    from tissue_image_processing_tpu_torch.core.pipeline import _reference_frames
+    from tissue_image_processing_tpu_torch.core.pipeline import _projections
     from tissue_image_processing_tpu_torch.utils.synthetic import make_movie
 
     if argv == ["radii"]:
@@ -4807,8 +4807,9 @@ def main(argv=()) -> int:
         (check_parallel if argv == ["parallel"] else check_cards)(card, movie)
         print(card_line())
         return 0
-    frames = _reference_frames(make_movie(T=2, Z=1, H=1024, W=1024, seed=2),
-                               0, torch.device("cuda"))
+    frames = _projections(make_movie(T=2, Z=1, H=1024, W=1024, seed=2), 0,
+                          torch.device("cuda"), keep=[0])
+    frames = frames[:, 0].transpose(1, 2).contiguous()
     rows = check_kernels(frames)
     rows["conv3x3_s8"] = check_conv_s8(card)
     by_caller, band_input = check_ported_functions(frames, card)

@@ -311,6 +311,9 @@ def test_stage_spans_on_the_profiler_clock(movie, case):
     for name, seconds, _ in stages:
         summed[name[len("stage."):]] += seconds
     assert set(summed) == set(timings)
+    if case == "unet":
+        assert set(timings) == {"upload", "normalize", "unet", "postprocess",
+                                "tables", "drift", "adaptive_radii", "track"}
     for key, seconds in timings.items():
         assert abs(summed[key] - seconds) <= 0.1 * seconds + 1e-3, (
             key, summed[key], seconds)

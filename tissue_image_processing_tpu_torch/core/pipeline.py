@@ -1,40 +1,25 @@
 """Whole-movie pipeline: segmentation -> cell tables -> drift -> tracking.
 
 Port of ``tissue_image_processing_tpu/core/pipeline.py`` (``movie_pipeline``
-and ``movie_pipeline_chunked``) with both segmenters. A Z > 1 movie is
+and ``movie_pipeline_chunked``) with three segmenters. A Z > 1 movie is
 uploaded one (C, Z, Y, X) frame at a time and surface-projected
 (``project_timepoint_auto``: the two fused projection kernels on the card).
 A Z == 1 movie is pre-projected and skips this.
 
-- The watershed branch keeps only the reference channel's projection;
-  frames go through threshold, blur and the row-stacked flood in batches.
-- The U-Net branch (``unet=``) keeps every channel (the model input is the
-  (atoh, zo) pair): per-channel 1-99 percentile normalisation, the U-Net
-  forward in bfloat16 (or int8, ``quantized``) on groups of frames, the
-  morphology post-process, and each group's boundary maps through ONE
-  stacked binary flood (zero-set seeds by the segmented-scan kernel, no
-  Bellman-Ford phase). Its labels
-  live in x-major space while its drift chain runs on the y-major
-  projection, with the two drift columns swapped to match.
-- The Cellpose branch (``cellpose=``) keeps every channel too: the
-  network's flows from tiles of ``batch`` frames at once
-  (``models/cellpose.py``), then a frame at a time flow following
-  (``csrc/follow_flows.cu``, built at its first call), the histogram
-  masks, the flow check and the hole filling (``ops/flows.py``); labels
-  are transposed to x-major space at the end and drifts measured as on the
-  U-Net branch.
-
-Tables and the drift chain run as tensor code on the same device, the
-adaptive radii are one level sweep over the tables there (on the card the
-``csrc/radii.cu`` kernels), and the tracker links frame by frame on the
-device.
+One segment body (``_Segmenter.segment``) serves the three segmenters
+(``_Watershed``, ``_UNet``, ``_Cellpose``), which give only their labels.
+Tables and the drift chain run as tensor code on the same device; one
+tracking tail (``_track``), for a whole movie and each chunk alike, runs
+the adaptive radii, one level sweep over the tables there (on the card the
+``csrc/radii.cu`` kernels), and the tracker, frame by frame on the device.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import time
-from typing import Dict, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -43,7 +28,7 @@ from tissue_image_processing_tpu_torch._device import count, resolve_device
 from tissue_image_processing_tpu_torch.core.cell_table import (
     CellTable, frame_cellinfo_checked, stack_tables)
 from tissue_image_processing_tpu_torch.core.tracking import (
-    TrackingState, adaptive_radii, compute_drift_chain, track_movie)
+    adaptive_radii, compute_drift_chain, track_movie)
 from tissue_image_processing_tpu_torch.models.cellpose import CellposeRunner
 from tissue_image_processing_tpu_torch.models.predictor import (
     prepare_batch, unet_from_config, unet_postprocess_batch)
@@ -134,17 +119,6 @@ def _projections(movie, reference_channel: int, device: torch.device,
     return torch.stack(out)
 
 
-def _reference_frames(movie, reference_channel: int, device: torch.device,
-                      airyscan: bool = False,
-                      timings: Optional[Dict[str, float]] = None
-                      ) -> torch.Tensor:
-    """(T, X, Y) float32 reference frames in the reference's x-major space:
-    only the reference channel's projection is kept."""
-    prj = _projections(movie, reference_channel, device, airyscan, timings,
-                       keep=[reference_channel])
-    return prj[:, 0].transpose(1, 2).contiguous()
-
-
 def _tables(labels: torch.Tensor, capacity: int,
             timings: Optional[Dict[str, float]]):
     """Stacked cell tables and neighbour-overflow flags of (T, H, W) labels.
@@ -170,140 +144,180 @@ def _drifts(refs: torch.Tensor, prev_ref: Optional[torch.Tensor],
         return compute_drift_chain(torch.cat([prev_ref[None], refs]))[1:]
 
 
-def _segment_program(refs_t: torch.Tensor, prev_ref: Optional[torch.Tensor],
-                     threshold: float, std: float, block_size: int,
-                     capacity: int, batch: int,
-                     timings: Optional[Dict[str, float]] = None):
-    """Watershed segmenter: labels, tables, drifts, neighbour-overflow flags
-    and the frame to carry of a run of x-major reference frames; ``prev_ref``
-    (the previous chunk's carried frame) makes drift[0] the chunk-boundary
-    shift."""
-    T, dev = refs_t.shape[0], refs_t.device
-    B = max(1, min(batch, T))
-    with _span(timings, "segment", dev):
-        labels = torch.cat([watershed_segmentation_batch(
-            refs_t[i:i + B], threshold, std, block_size)
-            for i in range(0, T, B)])
-    tabs, overflow = _tables(labels, capacity, timings)
-    drifts = _drifts(refs_t, prev_ref, timings)
-    return labels, tabs, drifts, overflow, refs_t[-1]
-
-
-def _segment_program_unet(prj: torch.Tensor, model,
-                          prev_ref: Optional[torch.Tensor],
-                          reference_channel: int, capacity: int, batch: int,
-                          timings: Optional[Dict[str, float]] = None):
-    """U-Net twin of :func:`_segment_program` on (T, C, Y, X) projections
-    with channels ordered (atoh, zo), the model's input order. Frames go
-    through the model in groups of ``_flood_batch(T, batch)`` and each
-    group's boundary maps flood as one stacked image. Labels come back in
-    x-major (X, Y) space; the drifts are measured on the y-major projection
-    (the carried frame is y-major too) and column-swapped to match: a
+@dataclasses.dataclass
+class _Segmenter:
+    """A run's segment body: the projections of the channels ``keep``
+    (None: all), from which ``frames`` picks the frames to segment and to
+    measure drift on; the subclass's ``labels(frames, timings)`` gives (T,
+    X, Y) labels. The defaults are the models': the y-major projection,
+    drifts column-swapped (``flip``) to the labels' x-major space, since a
     transposed image's phase shift is the swapped component pair."""
-    T, dev = prj.shape[0], prj.device
-    with _span(timings, "normalize", dev):
-        x, (pad_x, pad_y) = prepare_batch(prj)
-        x = x.to(torch.bfloat16)
-    B = _flood_batch(T, batch)
-    labels = []
-    for i in range(0, T, B):
-        with _span(timings, "unet", dev), torch.no_grad():
-            preds = model(x[i:i + B])[:, pad_x:, pad_y:, :]
-        with _span(timings, "postprocess", dev):
-            labels.append(unet_postprocess_batch(preds)[0])
-    labels = torch.cat(labels)
-    tabs, overflow = _tables(labels, capacity, timings)
-    refs = prj[:, reference_channel]
-    drifts = _drifts(refs, prev_ref, timings).flip(1)
-    return labels, tabs, drifts, overflow, refs[-1]
+
+    dev: torch.device
+    reference_channel: int
+    airyscan: bool
+    capacity: int
+    keep = None
+    flip = True
+
+    def frames(self, prj: torch.Tensor):
+        return prj, prj[:, self.reference_channel]
+
+    def segment(self, movie, prev_ref: Optional[torch.Tensor],
+                timings: Optional[Dict[str, float]] = None):
+        """Labels, tables, drifts, neighbour-overflow flags and the frame to
+        carry; ``prev_ref`` (the previous chunk's carried frame) makes
+        drift[0] the chunk-boundary shift."""
+        frames, refs = self.frames(_projections(
+            movie, self.reference_channel, self.dev, self.airyscan, timings,
+            self.keep))
+        labels = self.labels(frames, timings)
+        tabs, overflow = _tables(labels, self.capacity, timings)
+        drifts = _drifts(refs, prev_ref, timings)
+        if self.flip:
+            drifts = drifts.flip(1)
+        return labels, tabs, drifts, overflow, refs[-1]
 
 
-def _cellpose_labels(flows: torch.Tensor, runner,
-                     timings: Optional[Dict[str, float]]) -> torch.Tensor:
-    """(B, 3, Y, X) flows and cell-probability logits -> (B, X, Y) int32
-    labels in x-major space: the group's flows followed in one launch, then
-    a frame at a time the histogram masks, the flow check and the hole
-    filling (``ops/flows.py:frame_masks``)."""
-    dev = flows.device
-    with _span(timings, "follow", dev):
-        p, m, followed = follow(flows[:, :2], flows[:, 2], runner.niter,
-                                runner.cellprob_threshold)
+@dataclasses.dataclass
+class _Watershed(_Segmenter):
+    """Threshold, blur and the row-stacked flood on the reference channel's
+    x-major frames, ``batch`` at a time (the last group ragged); the drifts
+    are measured on the same frames, unswapped."""
 
-    def span(name):
-        return _span(timings, name, dev)
-    out = [frame_masks(p[j], m[j], flows[j, :2], int(followed[j]),
-                       runner.flow_threshold, runner.min_size, span)
-           for j in range(flows.shape[0])]
-    return torch.stack(out).transpose(1, 2).contiguous()
+    threshold: float
+    std: float
+    block_size: int
+    batch: int
+    flip = False
+
+    @property
+    def keep(self):
+        return [self.reference_channel]
+
+    def frames(self, prj):
+        refs_t = prj[:, 0].transpose(1, 2).contiguous()
+        return refs_t, refs_t
+
+    def labels(self, refs_t, timings):
+        T, dev = refs_t.shape[0], refs_t.device
+        B = max(1, min(self.batch, T))
+        with _span(timings, "segment", dev):
+            return torch.cat([watershed_segmentation_batch(
+                refs_t[i:i + B], self.threshold, self.std, self.block_size)
+                for i in range(0, T, B)])
 
 
-def _segment_program_cellpose(prj: torch.Tensor, runner,
-                              prev_ref: Optional[torch.Tensor],
-                              reference_channel: int, capacity: int,
-                              timings: Optional[Dict[str, float]] = None):
-    """Cellpose twin of :func:`_segment_program_unet` on (T, C, Y, X)
-    projections: frames go through the network's tiles ``runner.batch`` at
-    a time (spans ``cp_tiles`` around the tiles' making and blending,
-    ``cpnet`` around the forward alone), then to masks; labels come back in
-    x-major (X, Y) space and the drifts, measured on the y-major
-    projection, are column-swapped to match."""
-    T, dev = prj.shape[0], prj.device
-    Y, X = prj.shape[-2:]
-    labels = []
-    for i in range(0, T, runner.batch):
-        with _span(timings, "cp_tiles", dev):
-            tiles = runner.tiles(prj[i:i + runner.batch])
-        with _span(timings, "cpnet", dev):
-            y = runner.forward(tiles)
-        with _span(timings, "cp_tiles", dev):
-            flows = runner.blend(y, Y, X)
-        del tiles, y
-        labels.append(_cellpose_labels(flows, runner, timings))
-        del flows
-    labels = torch.cat(labels)
-    tabs, overflow = _tables(labels, capacity, timings)
-    refs = prj[:, reference_channel]
-    drifts = _drifts(refs, prev_ref, timings).flip(1)
-    return labels, tabs, drifts, overflow, refs[-1]
+@dataclasses.dataclass
+class _UNet(_Segmenter):
+    """The U-Net on (atoh, zo) projections: per-channel 1-99 percentile
+    normalisation, then per group of ``_flood_batch(T, batch)`` frames the
+    forward in bfloat16 (or int8, ``quantized``), the morphology
+    post-process and ONE stacked binary flood of the boundary maps
+    (zero-set seeds by the segmented-scan kernel). Labels are x-major."""
+
+    model: Callable[[torch.Tensor], torch.Tensor]
+    batch: int
+
+    def labels(self, prj, timings):
+        T, dev = prj.shape[0], prj.device
+        with _span(timings, "normalize", dev):
+            x, (pad_x, pad_y) = prepare_batch(prj)
+            x = x.to(torch.bfloat16)
+        B = _flood_batch(T, self.batch)
+        labels = []
+        for i in range(0, T, B):
+            with _span(timings, "unet", dev), torch.no_grad():
+                preds = self.model(x[i:i + B])[:, pad_x:, pad_y:, :]
+            with _span(timings, "postprocess", dev):
+                labels.append(unet_postprocess_batch(preds)[0])
+        return torch.cat(labels)
+
+
+@dataclasses.dataclass
+class _Cellpose(_Segmenter):
+    """Cellpose v2: flows from tiles of ``runner.batch`` frames at once
+    (spans ``cp_tiles`` around the tiles' making and blending, ``cpnet``
+    around the forward), followed in one launch a group
+    (``csrc/follow_flows.cu``), then a frame at a time the histogram masks,
+    the flow check and the hole filling (``ops/flows.py:frame_masks``).
+    Labels are x-major."""
+
+    runner: CellposeRunner
+
+    def labels(self, prj, timings):
+        r, dev = self.runner, prj.device
+        Y, X = prj.shape[-2:]
+
+        def span(name):
+            return _span(timings, name, dev)
+        labels = []
+        for i in range(0, prj.shape[0], r.batch):
+            with span("cp_tiles"):
+                tiles = r.tiles(prj[i:i + r.batch])
+            with span("cpnet"):
+                y = r.forward(tiles)
+            with span("cp_tiles"):
+                flows = r.blend(y, Y, X)
+            del tiles, y
+            with span("follow"):
+                p, m, followed = follow(flows[:, :2], flows[:, 2], r.niter,
+                                        r.cellprob_threshold)
+            labels.append(torch.stack([
+                frame_masks(p[j], m[j], flows[j, :2], int(followed[j]),
+                            r.flow_threshold, r.min_size, span)
+                for j in range(flows.shape[0])]).transpose(1, 2).contiguous())
+            del p, m, followed, flows
+        return torch.cat(labels)
 
 
 def _segmenter(dev: torch.device, unet: Optional[dict],
                reference_channel: int, threshold: float, std: float,
                block_size: int, capacity: int, batch: int, airyscan: bool,
-               cellpose: Optional[dict] = None):
-    """``segment(movie, prev_ref, timings=None)`` for one run: projects a
-    (T, C, Z, Y, X) run of frames and segments it with the U-Net when a
-    ``unet`` configuration is given, with Cellpose when a ``cellpose`` one
-    is (either model is built once, here), else with the watershed.
-    Returns labels, tables, drifts, overflow flags and the frame the next
-    chunk's drift chain starts from."""
+               cellpose: Optional[dict] = None) -> _Segmenter:
+    """The segmenter of one run: the U-Net when a ``unet`` configuration is
+    given, Cellpose when a ``cellpose`` one is (either model is built once,
+    here), else the watershed."""
     if unet is not None and cellpose is not None:
         raise ValueError("give unet= or cellpose=, not both")
+    common = (dev, reference_channel, airyscan, capacity)
     if cellpose is not None:
-        runner = CellposeRunner(cellpose, dev)
+        return _Cellpose(*common, CellposeRunner(cellpose, dev))
+    if unet is not None:
+        return _UNet(*common, unet_from_config(unet, dev),
+                     unet.get("batch", 8))
+    return _Watershed(*common, threshold, std, block_size, batch)
 
-        def segment(movie, prev_ref, timings=None):
-            prj = _projections(movie, reference_channel, dev, airyscan,
-                               timings)
-            return _segment_program_cellpose(prj, runner, prev_ref,
-                                             reference_channel, capacity,
-                                             timings)
-        return segment
-    if unet is None:
-        def segment(movie, prev_ref, timings=None):
-            refs_t = _reference_frames(movie, reference_channel, dev, airyscan,
-                                       timings)
-            return _segment_program(refs_t, prev_ref, threshold, std,
-                                    block_size, capacity, batch, timings)
-        return segment
-    model = unet_from_config(unet, dev)
-    unet_batch = unet.get("batch", 8)
 
-    def segment(movie, prev_ref, timings=None):
-        prj = _projections(movie, reference_channel, dev, airyscan, timings)
-        return _segment_program_unet(prj, model, prev_ref, reference_channel,
-                                     capacity, unet_batch, timings)
-    return segment
+def _track(tabs: CellTable, drifts, search_range: float, memory: int,
+           capacity: int, timings: Optional[Dict[str, float]] = None,
+           carry: Optional[tuple] = None):
+    """Adaptive radii and (T, N) track ids of stacked tables with (T, 2)
+    drifts, numpy or a tensor. A chunk of a chunked run passes ``carry``,
+    the previous chunk's (radii carry, tracker state, cumulative drift) or
+    (None, None, None) for the first, and gets ``(ids, carry)`` for the next
+    chunk; a whole movie passes none and gets the ids."""
+    chunked = carry is not None
+    radii_carry, state, cum = carry if chunked else (None, None, None)
+    dev = tabs.cy.device
+    with _span(timings, "adaptive_radii", dev):
+        mask = tabs.valid_mask()
+        ranges = adaptive_radii(tabs.cy, tabs.cx, tabs.area, mask,
+                                drifts=drifts, search_range=search_range,
+                                carry=radii_carry, return_carry=chunked)
+    if chunked:
+        ranges, radii_carry = ranges
+    with _span(timings, "track", dev):
+        ids = track_movie(
+            tabs.cy, tabs.cx, tabs.area, mask,
+            drifts=torch.as_tensor(drifts, dtype=torch.float32, device=dev),
+            search_range=search_range, memory=memory, capacity=2 * capacity,
+            search_ranges=ranges, init_state=state, cum_drift_init=cum,
+            return_state=chunked)
+    if not chunked:
+        return ids
+    ids, state, cum = ids
+    return ids, (radii_carry, state, cum)
 
 
 def movie_pipeline(movie, *, reference_channel: int = 0,
@@ -346,22 +360,13 @@ def movie_pipeline(movie, *, reference_channel: int = 0,
     ``utils/runtime.trace()`` gives a Chrome trace in which each stage is a
     ``stage.*`` range over its kernels and copies."""
     _check_movie(movie.shape)
-    dev = resolve_device(device)
-    segment = _segmenter(dev, unet, reference_channel, threshold, std,
-                         block_size, capacity, batch, airyscan, cellpose)
-    labels, tabs, dr, overflow, _ = segment(movie, None, timings)
+    seg = _segmenter(resolve_device(device), unet, reference_channel,
+                     threshold, std, block_size, capacity, batch, airyscan,
+                     cellpose)
+    labels, tabs, dr, overflow, _ = seg.segment(movie, None, timings)
     if drifts is not None:
         dr = drifts
-    with _span(timings, "adaptive_radii", dev):
-        mask = tabs.valid_mask()
-        ranges = adaptive_radii(tabs.cy, tabs.cx, tabs.area, mask, drifts=dr,
-                                search_range=search_range)
-    with _span(timings, "track", dev):
-        ids = track_movie(tabs.cy, tabs.cx, tabs.area, mask,
-                          drifts=torch.as_tensor(dr, dtype=torch.float32,
-                                                 device=dev),
-                          search_range=search_range, memory=memory,
-                          capacity=2 * capacity, search_ranges=ranges)
+    ids = _track(tabs, dr, search_range, memory, capacity, timings)
     if drifts is None:
         drifts = dr.cpu().numpy()
     return {"labels": labels, "tables": tabs, "drifts": drifts,
@@ -398,29 +403,20 @@ def movie_pipeline_chunked(store, *, chunk_frames: int,
     kept)."""
     data = store.data if hasattr(store, "data") else store
     _check_movie(data.shape)
-    dev = resolve_device(device)
-    segment = _segmenter(dev, unet, reference_channel, threshold, std,
-                         block_size, capacity, batch, airyscan, cellpose)
+    seg = _segmenter(resolve_device(device), unet, reference_channel,
+                     threshold, std, block_size, capacity, batch, airyscan,
+                     cellpose)
     T = data.shape[0]
     C = max(1, min(int(chunk_frames), T))
-    state = TrackingState.empty(2 * capacity, dev)
-    cum = torch.zeros(2, dtype=torch.float32, device=dev)
-    radii_carry, prev_ref = None, None
+    carry, prev_ref = (None, None, None), None
     all_ids, all_tabs, all_drifts, all_over, all_labels = [], [], [], [], []
     for t0 in range(0, T, C):
         chunk = np.asarray(data[t0:t0 + C])
         if channels is not None:
             chunk = chunk[:, list(channels)]
-        labels, tabs, dr, overflow, prev_ref = segment(chunk, prev_ref)
-        mask = tabs.valid_mask()
-        ranges, radii_carry = adaptive_radii(
-            tabs.cy, tabs.cx, tabs.area, mask, drifts=dr,
-            search_range=search_range, carry=radii_carry, return_carry=True)
-        ids, state, cum = track_movie(
-            tabs.cy, tabs.cx, tabs.area, mask,
-            drifts=dr, search_range=search_range, memory=memory,
-            capacity=2 * capacity, search_ranges=ranges,
-            init_state=state, cum_drift_init=cum, return_state=True)
+        labels, tabs, dr, overflow, prev_ref = seg.segment(chunk, prev_ref)
+        ids, carry = _track(tabs, dr, search_range, memory, capacity,
+                            carry=carry)
         host = tabs.map(lambda x: x.cpu())
         drifts = dr.cpu().numpy()
         # labels reach the host only for someone who keeps or receives them

@@ -202,12 +202,13 @@ def build_variants(source: str, signatures, specs):
 def _pre_blur_input():
     """Two thresholded 1024^2 reference frames, as the watershed hands them
     to its pre-blur."""
-    from tissue_image_processing_tpu_torch.core.pipeline import _reference_frames
+    from tissue_image_processing_tpu_torch.core.pipeline import _projections
     from tissue_image_processing_tpu_torch.ops.local_threshold import (
         threshold_local_max)
 
-    frames = _reference_frames(make_movie(T=2, Z=1, H=1024, W=1024, seed=2),
-                               0, torch.device("cuda"))
+    frames = _projections(make_movie(T=2, Z=1, H=1024, W=1024, seed=2), 0,
+                          torch.device("cuda"), keep=[0])
+    frames = frames[:, 0].transpose(1, 2).contiguous()
     return torch.where(frames < 0.2 * threshold_local_max(frames, 101), 0.0,
                        frames).contiguous()
 
