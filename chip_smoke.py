@@ -6,6 +6,7 @@
     python3 chip_smoke.py cards      # its mesh of every card, against one card
     python3 chip_smoke.py radii      # the build and the "radii" phase alone
     python3 chip_smoke.py cellpose   # the build and the "cellpose" phase alone
+    python3 chip_smoke.py auction    # the build and the "auction" phase alone
 
 Phases (any failure exits non-zero; no phase catches and continues):
 
@@ -190,6 +191,19 @@ Phases (any failure exits non-zero; no phase catches and continues):
    bit for bit and solves equal, the chunked call (carry) equal to the
    whole; the kernels' device time by kernel, the wrapper's, the plain
    sweep's and the recursion's;
+10b'. "auction": the tracker's auction kernel (``csrc/auction.cu``,
+   ``check_auction``) on the benchmark's ``preproj_2000`` tables: one movie
+   of the traffic file's recipe through the watershed ``movie_pipeline``
+   at both configurations' capacities (4096: persons x tracks 4096 x 8192,
+   the state in shared memory; 8192: 8192 x 16384, in device memory), one
+   ``auction`` launch a frame on that path; each frame's auction inputs
+   captured from the tracking tail (``_track``) and, on them, the kernel
+   against the plain loop on the same card tensors, ids and rounds bit for
+   bit, the tail's ids with the loop in place of the kernel equal to the
+   path's; the kernel's device time a frame by CUDA events and by the
+   profiler, the plain loop's and the whole tail's host time in each form,
+   and the bound (valid persons x C x 12 B a round, every round, at 3.35
+   TB/s);
 10c. "cellpose": Cellpose's flow following (``csrc/follow_flows.cu``,
    ``check_cellpose``) on the benchmark's ``cellpose_preproj_2000`` input:
    one movie of the ``preproj_2000`` recipe, the configuration's network
@@ -264,6 +278,7 @@ KERNEL_SOURCE = {
     "radii_sweep": "tissue_image_processing_tpu_torch/csrc/radii.cu",
     "follow_flows": "tissue_image_processing_tpu_torch/csrc/follow_flows.cu",
     "flow_diffuse": "tissue_image_processing_tpu_torch/csrc/flow_diffuse.cu",
+    "auction": "tissue_image_processing_tpu_torch/csrc/auction.cu",
 }
 FLOOD_SOURCE = "tissue_image_processing_tpu_torch/csrc/flood.cu"
 REPLACES = {
@@ -1812,6 +1827,127 @@ def check_radii(card: str, capacities=(4096, 8192), seed: int = 2026101807
     return row
 
 
+def check_auction(card: str, capacities=(4096, 8192), seed: int = 2026101824
+                  ) -> dict:
+    """Phase "auction" (see the module docstring). Returns the kernel
+    table's row: by capacity, the kernel's device ms a frame (events; the
+    profiler's split is a movie's), the plain loop's and the tracking
+    tail's host ms a frame with each, rounds a frame, the form and the
+    bound."""
+    import torch
+
+    import tissue_image_processing_tpu_torch as tipt
+    from benchmark.movies import make_movie as benchmark_movie
+    from tissue_image_processing_tpu_torch.core import pipeline as tpipe
+    from tissue_image_processing_tpu_torch.core import tracking as ttr
+
+    root = Path(__file__).resolve().parent
+    traffic = json.loads((root / "benchmark/traffic/preproj_2000.json")
+                         .read_text())
+    cfg = json.loads((root / "benchmark/configs/utricle_ws.json").read_text())
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    movie = benchmark_movie(traffic, int(cfg["frames"]), seed, dev)
+    print(f"auction: preproj_2000 movie {movie.shape} (seed {seed}) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    kw = {k: cfg[k] for k in ("reference_channel", "threshold", "std",
+                              "block_size", "batch", "search_range",
+                              "memory")}
+    T = movie.shape[0]
+    kernel = ttr._rounds_card
+
+    def loop(b, cand, person_mask, eps, K, max_rounds, rounds):
+        person_obj, n = ttr._rounds_plain(b, cand, person_mask, eps, K,
+                                          max_rounds)
+        rounds.fill_(n)
+        return person_obj
+
+    def swapped(fn, rounds_fn):
+        ttr._rounds_card = rounds_fn
+        try:
+            return fn()
+        finally:
+            ttr._rounds_card = kernel
+
+    row = {"by_capacity": {}}
+    for capacity in capacities:
+        tipt.reset_launches()
+        out = tpipe.movie_pipeline(movie, capacity=capacity, device=dev, **kw)
+        assert tipt.LAUNCHES["auction"] == T, tipt.LAUNCHES
+        assert tipt._device.COUNTS["auction_card"] == T
+        n_global = tipt._device.COUNTS["auction_global"]
+        assert n_global == (T if capacity == 8192 else 0), n_global
+
+        def tail():
+            ids = tpipe._track(out["tables"], out["drifts"],
+                               float(kw["search_range"]), int(kw["memory"]),
+                               capacity)
+            torch.cuda.synchronize()
+            return ids
+
+        inputs = []
+
+        def capture(*args):
+            inputs.append(args[:6])
+            return kernel(*args)
+
+        ids = swapped(tail, capture)
+        assert np.array_equal(ids.cpu().numpy(), out["ids"]), \
+            "the tail's ids differ from the path's"
+        assert torch.equal(swapped(tail, loop), ids), "kernel != loop (ids)"
+        rounds = torch.zeros(len(inputs), dtype=torch.int32, device=dev)
+
+        def kernels():
+            return [kernel(*x, rounds[i:i + 1]) for i, x in enumerate(inputs)]
+
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = kernels()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        per_frame = rounds.tolist()
+        for g, (want, n), r in zip(got, (ttr._rounds_plain(*x)
+                                         for x in inputs), per_frame):
+            assert torch.equal(g, want) and r == n, (r, n)
+        ms = cuda_ms_spread(kernels, 5)
+        split = kernel_split(kernels, 3)
+        t_plain = host_ms(lambda: ([ttr._rounds_plain(*x) for x in inputs],
+                                   torch.cuda.synchronize()), 3)
+        t_tail = host_ms(tail, 3)
+        t_tail_loop = host_ms(lambda: swapped(tail, loop), 3)
+        # where the rest of the tail goes: device us a movie by kernel
+        tail_split = kernel_split(tail, 1)
+        M, C = inputs[0][0].shape
+        K = inputs[0][4]
+        persons = [int(x[2].sum()) for x in inputs]
+        nbytes = sum(p * C * 12 * n for p, n in zip(persons, per_frame))
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3 / T
+        r = {"persons_x_tracks": [M, K], "valid_persons": persons,
+             "rounds_per_frame": per_frame,
+             "form": "device memory" if n_global else "shared memory",
+             "ms": ms[0] / T, "ms_min": ms[1] / T, "ms_max": ms[2] / T,
+             "kernels_us_a_movie": split, "plain_ms": t_plain / T,
+             "tail_ms": t_tail / T, "tail_loop_ms": t_tail_loop / T,
+             "tail_kernels_us_a_movie": tail_split,
+             "bound_ms": bound_ms, "bound_by": "bytes", "launches": T}
+        row["by_capacity"][capacity] = r
+        print(f"auction capacity {capacity} ({M} x {K}, {r['form']}): "
+              f"kernel == loop (ids and rounds bit for bit, {sum(per_frame)} "
+              f"rounds: {per_frame}; no host synchronisation in "
+              f"{len(inputs)} calls; the tail's ids with the loop equal); "
+              f"kernel {ms[0] / T:.4f} ms a frame ({ms[1] / T:.4f}.."
+              f"{ms[2] / T:.4f}), by the profiler (us a movie of {T}) "
+              f"{split}; plain loop {t_plain / T:.3f} ms a frame; tracking "
+              f"tail {t_tail / T:.3f} ms a frame (with the loop "
+              f"{t_tail_loop / T:.3f}); bound {bound_ms:.5f} ms a frame "
+              f"(bytes) on {card_line()}")
+        print(f"auction capacity {capacity}: the tail's kernels (us a movie "
+              f"of {T}) {tail_split}")
+    del movie
+    return row
+
+
 def check_cellpose(card: str, seed: int = 2026101821) -> dict:
     """Phase "cellpose" (see the module docstring). Returns the kernel
     table's row."""
@@ -2778,10 +2914,12 @@ def check_tissue(card: str, movie, device: str = "cuda", side: int = 1024,
                 res = fn()
                 if record is not None:
                     sync()
-                    radii = 3 if (name == "track_cells"
-                                  and tissue.device.type == "cuda") else 0
+                    tracked = (name == "track_cells"
+                               and tissue.device.type == "cuda")
+                    # the radii's three launches, an auction a frame
                     record[name] = ((time.perf_counter() - t0) * 1e3 / per,
-                                    launched({"radii_sweep": radii}))
+                                    launched({"radii_sweep": 3 * tracked,
+                                              "auction": per * tracked}))
                 return res
 
             res = tissue_steps(tissue, markers[:frames], refs[:frames],
@@ -3903,13 +4041,16 @@ def trace_positions(par: ParallelRun, name: str, fn) -> None:
     with tempfile.TemporaryDirectory(dir=build, prefix="smoke_trace_") as d:
         path = str(Path(d) / "trace.json")
         _, _, wall_ms, _ = device_profile(fn, rows=True, trace=path)
-        streams = stream_activity(path, handwritten_kernels())
+        # the tracker's auction runs on the lead device's stream after the
+        # shards join, once a frame: not a shard body's kernel
+        streams = stream_activity(path, [k for k in handwritten_kernels()
+                                         if k != "auction_kernel"])
     carrying = {s: v for s, v in streams.items() if v["kernels"]}
     counts = [dict(v["kernels"]) for v in carrying.values()]
     assert len(carrying) == par.shards, \
         f"hand-written kernels on {len(carrying)} streams: {counts}"
     assert all(c == counts[0] for c in counts), counts
-    launched = sum(par.launches[name].values())
+    launched = sum(v for k, v in par.launches[name].items() if k != "auction")
     assert sum(sum(c.values()) for c in counts) == launched, (counts, launched)
     busy, overlapped = busy_and_overlap_ms(streams)
     on_positions = busy_and_overlap_ms(carrying)
@@ -4770,9 +4911,9 @@ def main(argv=()) -> int:
     import torch
 
     if list(argv) not in ([], ["parallel"], ["cards"], ["radii"],
-                          ["cellpose"]):
+                          ["cellpose"], ["auction"]):
         print("usage: python3 chip_smoke.py [parallel | cards | radii | "
-              "cellpose]", file=sys.stderr)
+              "cellpose | auction]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -4794,6 +4935,10 @@ def main(argv=()) -> int:
 
     if argv == ["radii"]:
         print(json.dumps({"radii_sweep": check_radii(card)}))
+        print(card_line())
+        return 0
+    if argv == ["auction"]:
+        print(json.dumps({"auction": check_auction(card)}))
         print(card_line())
         return 0
     if argv == ["cellpose"]:
@@ -4834,6 +4979,7 @@ def main(argv=()) -> int:
     unet_launches, unet_blur_shapes, int8_launches, int8_forms = \
         check_unet_pipeline(card, movie_z30)
     radii_row = check_radii(card)
+    auction_row = check_auction(card)
     follow_row, diffuse_row = check_cellpose(card)
     check_card_vs_cpu()
     check_keras_weights(card)
@@ -4920,6 +5066,11 @@ def main(argv=()) -> int:
                   "replaces": "none (host numpy / scipy in the JAX package: "
                               "core/tracking.py:adaptive_effective_ranges)",
                   **radii_row})
+    table.append({"name": "auction", "route": "cuda",
+                  "source": KERNEL_SOURCE["auction"],
+                  "replaces": "none (a lax.while_loop in the JAX package: "
+                              "core/tracking.py:auction_assignment)",
+                  **auction_row})
     table.append({"name": "follow_flows", "route": "cuda",
                   "source": KERNEL_SOURCE["follow_flows"],
                   "replaces": "none (the JAX package has no Cellpose)",

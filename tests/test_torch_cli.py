@@ -479,21 +479,22 @@ def test_warmup_on_cpu_builds_nothing(monkeypatch, unet):
 
 
 def test_warmup_kernel_sets():
-    """The libraries each path launches from: the watershed set and the
-    adaptive radii's sweep, plus ``cc_scan`` on the U-Net path and
-    ``conv_s8`` on its int8 form; the fused projection only for a stack its
-    gate accepts."""
+    """The libraries each path launches from: the watershed set, the
+    adaptive radii's sweep and the tracker's auction, plus ``cc_scan`` on
+    the U-Net path and ``conv_s8`` on its int8 form; the fused projection
+    only for a stack its gate accepts."""
     def libs(*argv):
         args = tcli.build_parser().parse_args(["warmup", *argv])
         return sorted(tcli._kernel_libraries(args))
 
-    assert libs() == ["blur3d", "flood", "projection", "radii"]
-    assert libs("--zdepth", "1") == ["blur3d", "flood", "radii"]
-    assert libs("--size", "96") == ["blur3d", "flood", "radii"]
-    assert libs("--unet") == ["blur3d", "cc_scan", "flood", "projection",
-                              "radii"]
-    assert libs("--unet", "--quantize") == ["blur3d", "cc_scan", "conv_s8",
-                                            "flood", "projection", "radii"]
+    assert libs() == ["auction", "blur3d", "flood", "projection", "radii"]
+    assert libs("--zdepth", "1") == ["auction", "blur3d", "flood", "radii"]
+    assert libs("--size", "96") == ["auction", "blur3d", "flood", "radii"]
+    assert libs("--unet") == ["auction", "blur3d", "cc_scan", "flood",
+                              "projection", "radii"]
+    assert libs("--unet", "--quantize") == ["auction", "blur3d", "cc_scan",
+                                            "conv_s8", "flood", "projection",
+                                            "radii"]
 
 
 def test_enable_compilation_cache(tmp_path, monkeypatch):

@@ -10,7 +10,9 @@ Every kernel wrapper adds the number of kernels it launched to
 to ``BLUR_LAUNCHES[(Z, Y, X, tz, ty, tx)]`` and ``BLUR_FORMS[form]``, and
 the int8 conv, which has three forms, to ``CONV_LAUNCHES[form]``. Work that
 is not a kernel launch is counted in ``COUNTS[name]`` by :func:`count`
-(``upload_bytes``, ``auction_rounds``, ``radii_solves``, and Cellpose's
+(``upload_bytes``, ``auction_rounds``, ``auction_card`` (auctions solved in
+one launch), ``auction_global`` (of those, in the device-memory form),
+``radii_solves``, and Cellpose's
 ``cp_tiles``, ``follow_px``, ``qc_iters``, ``qc_px_iters``,
 ``qc_masks_global``, ``cp_masks_found``, ``cp_masks_kept``), once for each
 call of the counting function. ``reset_launches()`` zeroes every count so a caller
@@ -47,7 +49,7 @@ DEFAULT_BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_ke
 # where built libraries are kept; utils/runtime.enable_compilation_cache moves it
 BUILD_DIR = DEFAULT_BUILD_DIR
 KERNEL_SOURCES = ("blur3d", "flood", "projection", "cc_scan", "conv_s8",
-                  "radii", "follow_flows", "flow_diffuse")
+                  "radii", "follow_flows", "flow_diffuse", "auction")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -56,14 +58,15 @@ LAUNCHES: Dict[str, int] = {"blur3d": 0, "diffusion_bf": 0,
                             "proj_score": 0, "proj_project": 0, "cc_scan": 0,
                             "conv3x3_s8": 0, "radii_sweep": 0,
                             "follow_flows": 0, "flow_diffuse": 0,
-                            "flow_diffuse_global": 0}
+                            "flow_diffuse_global": 0, "auction": 0}
 # blur3d launches by (Z, Y, X, tz, ty, tx)
 BLUR_LAUNCHES: collections.Counter = collections.Counter()
 # blur3d launches by form ("z_only", "tile25", "walk", "generic")
 BLUR_FORMS: collections.Counter = collections.Counter()
 # conv3x3_s8 launches by form ("tensor_core", "first_conv", "generic")
 CONV_LAUNCHES: collections.Counter = collections.Counter()
-# work other than launches: bytes uploaded, auction rounds, radii solves
+# work other than launches: bytes uploaded, auction rounds and forms,
+# radii solves
 COUNTS: collections.Counter = collections.Counter()
 _COUNT_LOCK = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -350,8 +350,9 @@ def _kernel_libraries(args):
     """The ``csrc`` libraries that ``cli pipeline`` launches kernels from
     with these flags: the watershed set (the blur and the floods, and the
     fused projection for a stack it accepts), the adaptive radii's sweep,
-    ``cc_scan`` on the U-Net path and ``conv_s8`` on its int8 form. Maps
-    each library name to its loader's ctypes signatures."""
+    the tracker's auction, ``cc_scan`` on the U-Net path and ``conv_s8`` on
+    its int8 form. Maps each library name to its loader's ctypes
+    signatures."""
     from tissue_image_processing_tpu_torch.core import tracking
     from tissue_image_processing_tpu_torch.ops import (blur_cuda,
                                                        conv_s8_cuda,
@@ -359,7 +360,8 @@ def _kernel_libraries(args):
     from tissue_image_processing_tpu_torch.projection import fused
 
     libs = {"blur3d": blur_cuda._SIGNATURES, "flood": flood_cuda._SIGNATURES,
-            "radii": tracking._RADII_SIGNATURES}
+            "radii": tracking._RADII_SIGNATURES,
+            "auction": tracking._AUCTION_SIGNATURES}
     C = 2 if getattr(args, "unet", False) else args.channels_n
     if args.zdepth > 1 and fused.fused_projection_supported(
             (C, args.zdepth, args.size, args.size)):

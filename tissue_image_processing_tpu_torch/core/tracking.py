@@ -3,17 +3,19 @@
 Port of ``tissue_image_processing_tpu/core/tracking.py``: trackpy's linking
 (metric sqrt(dy^2 + dx^2 + 0.5 (sqrt a1 - sqrt a2)^2), search_range gate,
 memory) resolved per frame by a forward auction with top-k candidate pruning
-and per-person eps escalation; the drift chain and the windowed local drift
-field by phase correlation; the adaptive per-cell radii (trackpy's subnet
-shrinking: the JAX package's host recursion, and :func:`adaptive_radii`, the
-same radii as one level sweep of a union-find, on the card the
-``csrc/radii.cu`` kernels); and the legacy nearest-pixel tracker (host
-numpy and scipy, as in the JAX package).
+and per-person eps escalation (on the card every round of a frame's auction
+in one ``csrc/auction.cu`` launch); the drift chain and the windowed local
+drift field by phase correlation; the adaptive per-cell radii (trackpy's
+subnet shrinking: the JAX package's host recursion, and
+:func:`adaptive_radii`, the same radii as one level sweep of a union-find,
+on the card the ``csrc/radii.cu`` kernels); and the legacy nearest-pixel
+tracker (host numpy and scipy, as in the JAX package).
 
-The JAX ``lax.while_loop``/``lax.scan`` become Python loops and the
-``segment_*`` reductions ``scatter_reduce``. The arithmetic follows the JAX
-version's float32 operations one for one, including the fused multiply-adds
-its compiler forms in the link cost, so ids agree exactly on the same inputs.
+The JAX ``lax.while_loop``/``lax.scan`` become Python loops (the auction's
+rounds, on the card, a kernel) and the ``segment_*`` reductions
+``scatter_reduce``. The arithmetic follows the JAX version's float32
+operations one for one, including the fused multiply-adds its compiler forms
+in the link cost, so ids agree exactly on the same inputs.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ __all__ = ["TrackingState", "auction_assignment", "link_frames", "track_movie",
            "RadiiCarry", "adaptive_radii"]
 
 _NEG = float("-inf")
+_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 
 
 def _seg_reduce(vals: torch.Tensor, seg: torch.Tensor, n: int, reduce: str,
@@ -58,12 +61,40 @@ def auction_assignment(benefit: torch.Tensor, person_mask: torch.Tensor,
     eps (capped at 1024 eps). Returns (M,) object index per person, -1 if
     unassigned. See the JAX version's docstring for the design record.
 
-    Each call adds its rounds, the last one (no bidder left, or the
-    ``max_rounds``-th) included, to ``COUNTS["auction_rounds"]``: each round
-    waits for the host to read its flag."""
-    M, K = benefit.shape
+    A CPU tensor runs the rounds as a Python loop (:func:`_rounds_plain`),
+    a CUDA tensor (float32 benefits) in one launch of ``csrc/auction.cu``
+    with no host read between rounds. Each call adds its rounds, the last
+    one (no bidder left, or the ``max_rounds``-th) included, to
+    ``COUNTS["auction_rounds"]``: on the card one host read a call."""
+    rounds = torch.zeros(1, dtype=torch.int32, device=benefit.device)
+    person_obj = _auction(benefit, person_mask, object_mask, eps, max_rounds,
+                          cand_k, rounds)
+    count("auction_rounds", int(rounds))
+    return person_obj
+
+
+def _auction(benefit, person_mask, object_mask, eps, max_rounds, cand_k,
+             rounds: torch.Tensor) -> torch.Tensor:
+    """:func:`auction_assignment` with its round count written to
+    ``rounds`` (one int32 on ``benefit``'s device), not counted: the
+    candidate pruning, then the rounds on the tensors' device."""
+    K = benefit.shape[1]
     dev = benefit.device
-    C = min(cand_k or 8, K)
+    b, cand = _candidates(benefit, person_mask, object_mask,
+                          min(cand_k or 8, K))
+    eps = torch.as_tensor(eps, dtype=torch.float32, device=dev)
+    if dev.type == "cpu":
+        person_obj, n = _rounds_plain(b, cand, person_mask, eps, K, max_rounds)
+        rounds.fill_(n)
+        return person_obj
+    return _rounds_card(b, cand, person_mask, eps, K, max_rounds, rounds)
+
+
+def _candidates(benefit, person_mask, object_mask, C: int):
+    """Each person's C best objects by C argmax passes over the masked
+    (M, K) benefits: (b (M, C) descending, cand (M, C) int64)."""
+    M = benefit.shape[0]
+    dev = benefit.device
     neg = torch.full_like(benefit, _NEG)
     bb = torch.where(person_mask[:, None] & object_mask[None, :], benefit, neg)
     person_idx = torch.arange(M, device=dev)
@@ -73,10 +104,18 @@ def auction_assignment(benefit: torch.Tensor, person_mask: torch.Tensor,
         bs.append(bb[person_idx, j])
         idxs.append(j)
         bb = bb.index_put((person_idx, j), torch.tensor(_NEG, device=dev))
-    b = torch.stack(bs, 1)           # (M, C) best benefits, descending
-    cand = torch.stack(idxs, 1)      # (M, C) object indices
-    eps = torch.as_tensor(eps, dtype=torch.float32, device=dev)
+    return torch.stack(bs, 1), torch.stack(idxs, 1)
 
+
+def _rounds_plain(b: torch.Tensor, cand: torch.Tensor,
+                  person_mask: torch.Tensor, eps: torch.Tensor, K: int,
+                  max_rounds: int) -> Tuple[torch.Tensor, int]:
+    """The auction's rounds on the (M, C) candidates as a Python loop, on
+    any device; each round waits for the host to read its flag. Returns
+    (person_obj, rounds)."""
+    M = b.shape[0]
+    dev = b.device
+    person_idx = torch.arange(M, device=dev)
     price = torch.zeros(K, dtype=torch.float32, device=dev)
     owner = torch.full((K,), -1, dtype=torch.int64, device=dev)
     person_obj = torch.full((M,), -1, dtype=torch.int64, device=dev)
@@ -113,7 +152,50 @@ def auction_assignment(benefit: torch.Tensor, person_mask: torch.Tensor,
         person_obj = torch.where(winner, obj, person_obj)
         owner[obj[winner]] = person_idx[winner]
         price = torch.where(newly_won, obj_best, price)
-    count("auction_rounds", rounds)
+    return person_obj, rounds
+
+
+_AUCTION_SIGNATURES = {
+    "auction_shared_limit": (),
+    "auction_solve": (_P,) * 4 + (_I,) * 4 + (_P,) * 3,
+}
+
+
+def _auction_shared_limit(lib, dev: torch.device) -> int:
+    """State bytes of one auction that ``dev``'s shared memory holds."""
+    with torch.cuda.device(dev):
+        return lib.auction_shared_limit()
+
+
+def _rounds_card(b: torch.Tensor, cand: torch.Tensor,
+                 person_mask: torch.Tensor, eps: torch.Tensor, K: int,
+                 max_rounds: int, rounds: torch.Tensor) -> torch.Tensor:
+    """:func:`_rounds_plain` in one launch of ``csrc/auction.cu``: the same
+    person_obj, the round count written to ``rounds``, nothing read back.
+    The state lives in shared memory up to the card's limit, else in a
+    device-memory workspace (``COUNTS["auction_global"]``)."""
+    M, C = b.shape
+    dev = b.device
+    b, cand = b.contiguous(), cand.contiguous()
+    _device.require_cuda_tensor(b, torch.float32, 2, "auction benefits")
+    _device.require_cuda_tensor(cand, torch.int64, 2, "auction candidates")
+    person = person_mask.to(torch.bool).contiguous().view(torch.uint8)
+    person_obj = torch.empty(M, dtype=torch.int64, device=dev)
+    lib = _device.load_library("auction", _AUCTION_SIGNATURES)
+    # best bid, price and owner an object, the round's list of objects bid
+    # on, object and evictions a person (csrc/auction.cu state_bytes)
+    nbytes = 16 * K + 4 * min(M, K) + 8 * M
+    ws = (None if nbytes <= _auction_shared_limit(lib, dev) else
+          torch.empty(nbytes, dtype=torch.uint8, device=dev))
+    _device.launch(lib, lib.auction_solve, dev, "auction_solve",
+                   _device.ptr(b), _device.ptr(cand), _device.ptr(person),
+                   _device.ptr(eps), M, K, C, max_rounds,
+                   _device.ptr(person_obj), _device.ptr(rounds),
+                   None if ws is None else _device.ptr(ws))
+    _device.count_launch("auction")
+    count("auction_card", 1)
+    if ws is not None:
+        count("auction_global", 1)
     return person_obj
 
 
@@ -154,7 +236,20 @@ def link_frames(state: TrackingState, cy: torch.Tensor, cx: torch.Tensor,
                 ) -> Tuple[TrackingState, torch.Tensor]:
     """Link one frame's cells (padded arrays of size M) to the live track
     set; ``search_range`` is a scalar or an (M,) per-cell radius. Returns
-    (new_state, track_ids (M,)), ids 0 where ``mask`` is False."""
+    (new_state, track_ids (M,)), ids 0 where ``mask`` is False. Adds the
+    auction's rounds to ``COUNTS["auction_rounds"]``."""
+    rounds = torch.zeros(1, dtype=torch.int32, device=cy.device)
+    out = _link(state, cy, cx, area, mask, search_range, memory, area_weight,
+                eps_factor, max_rounds, cand_k, rounds)
+    count("auction_rounds", int(rounds))
+    return out
+
+
+def _link(state: TrackingState, cy, cx, area, mask, search_range, memory,
+          area_weight, eps_factor, max_rounds, cand_k, rounds: torch.Tensor
+          ) -> Tuple[TrackingState, torch.Tensor]:
+    """:func:`link_frames` with the auction's round count written to
+    ``rounds`` (one int32 on the tables' device)."""
     M = cy.shape[0]
     K = state.pos.shape[0]
     dev = cy.device
@@ -168,8 +263,8 @@ def link_frames(state: TrackingState, cy: torch.Tensor, cx: torch.Tensor,
     benefit = torch.where(cost2 < sr2_col, sr2_col - cost2,
                           torch.full_like(cost2, _NEG))
     eps = torch.tensor(eps_factor, dtype=torch.float32, device=dev) * sr2.max()
-    person_obj = auction_assignment(benefit, mask, alive, eps=eps,
-                                    max_rounds=max_rounds, cand_k=cand_k)
+    person_obj = _auction(benefit, mask, alive, eps, max_rounds, cand_k,
+                          rounds)
 
     matched = person_obj >= 0
     safe_obj = torch.clamp(person_obj, 0, K - 1)
@@ -218,7 +313,9 @@ def track_movie(cy: torch.Tensor, cx: torch.Tensor, area: torch.Tensor,
     centroids; ``search_ranges`` (T,) or (T, N) override ``search_range``;
     invalid frames are skipped while track ages advance. Chunked calls pass
     the previous chunk's state and cumulative drift (``drifts[0]`` then being
-    the boundary drift) and reproduce the whole-movie ids exactly."""
+    the boundary drift) and reproduce the whole-movie ids exactly. Each
+    frame's auction writes its rounds to a slot of its own; the call adds
+    them to ``COUNTS["auction_rounds"]`` with one read."""
     T, N = cy.shape
     dev = cy.device
     K = capacity or 2 * N
@@ -240,17 +337,18 @@ def track_movie(cy: torch.Tensor, cx: torch.Tensor, area: torch.Tensor,
                                    device=dev)
     state = init_state if init_state is not None else TrackingState.empty(K, dev)
     valid_host = frame_valid.cpu().tolist()
+    rounds = torch.zeros(T, dtype=torch.int32, device=dev)
     ids = []
     for t in range(T):
         if not valid_host[t]:
             state = dataclasses.replace(state, age=state.age + 1)
             ids.append(torch.zeros(N, dtype=torch.int32, device=dev))
             continue
-        state, fid = link_frames(state, cy_c[t], cx_c[t], area[t], mask[t],
-                                 search_range=search_ranges[t], memory=memory,
-                                 area_weight=area_weight, eps_factor=eps_factor,
-                                 max_rounds=max_rounds, cand_k=cand_k)
+        state, fid = _link(state, cy_c[t], cx_c[t], area[t], mask[t],
+                           search_ranges[t], memory, area_weight, eps_factor,
+                           max_rounds, cand_k, rounds[t:t + 1])
         ids.append(fid)
+    count("auction_rounds", int(rounds.sum()))
     ids = torch.where(mask & frame_valid[:, None], torch.stack(ids, 0), 0)
     if return_state:
         return ids, state, cum[-1]
@@ -476,7 +574,6 @@ def adaptive_effective_ranges(cy: np.ndarray, cx: np.ndarray, area: np.ndarray,
 
 # --- adaptive radii as one level sweep ----------------------------------------
 
-_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _TABLES = (_P,) * 10 + (_I,) * 4 + (_D,) * 4
 _RADII_SIGNATURES = {
     "radii_shared_limit": (),
