@@ -437,7 +437,7 @@ def test_the_kernel_is_not_imported_off_the_branch():
             "print('tissue_image_processing_tpu_torch.ops.flows_cuda' "
             "in sys.modules)")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, check=True)
+                         text=True, check=True, timeout=120)
     assert out.stdout.strip() == "False"
 
 

@@ -284,13 +284,14 @@ def test_launch_failure_raises_and_leaves_guard(monkeypatch):
 
 def _in_threads(fn, n=THREADS):
     """``fn(k)`` in ``n`` threads started together, with a short switch
-    interval; returns their results by k."""
+    interval; returns their results by k. Every wait is bounded, and the
+    threads are daemons, so a hung one fails the test and not the run."""
     out, errors = [None] * n, []
     start = threading.Barrier(n)
 
     def run(k):
         try:
-            start.wait()
+            start.wait(JOIN_S)
             out[k] = fn(k)
         except Exception as exc:   # reported by the caller
             errors.append(exc)
@@ -298,7 +299,8 @@ def _in_threads(fn, n=THREADS):
     old = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
     try:
-        workers = [threading.Thread(target=run, args=(k,)) for k in range(n)]
+        workers = [threading.Thread(target=run, args=(k,), daemon=True)
+                   for k in range(n)]
         for w in workers:
             w.start()
         for w in workers:

@@ -23,6 +23,7 @@ The CUDA kernels are checked against their plain versions on the card
 
 import importlib
 
+import jax
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -52,6 +53,17 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     return torch.device("cuda")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _drop_compiled_jax_programs():
+    """Leave the worker without the JAX programs this file compiled. With
+    them, ``tests/test_projection_fused.py`` on the same worker makes a
+    cached fused-projection call right behind an uncached one, and Mosaic
+    interpret mode under the CPU's async dispatch can deadlock there
+    (ROADMAP section 1, fault 11)."""
+    yield
+    jax.clear_caches()
 
 
 def make_stack(C=2, Z=8, Y=128, X=128, seed=0, offset=0.0):
